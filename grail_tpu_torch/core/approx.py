@@ -1,0 +1,35 @@
+"""Fast math approximations — these exact formulas are *part of the sound*.
+
+The reference synthesizer does not use true tan/exp; it uses cheap polynomial
+approximations, and the output waveform depends on their exact shape
+(grail-rs src/lib.rs:60-82). Both functions are elementwise add/mul only and
+keep the JAX package's operation order (grail_tpu/core/approx.py), so a
+tensor evaluated here rounds exactly as the numpy evaluation of the same
+expression does. The CUDA kernel (synth/csrc/fused_synth.cu) writes the same
+expressions out in C++.
+"""
+
+from __future__ import annotations
+
+
+def tan_approx_parts(x):
+    """(numerator N, denominator D) with N/D the Bhaskara tan(pi*x)
+    approximation: N = q*(5-4p), D = p*(5-4q) with p=(x+0.5)(0.5-x),
+    q=(1-x)x. The fused synthesizer composes N and D into a single-division
+    SVF coefficient expression."""
+    u = 1.0 - x
+    v = x + 0.5
+    p = v * (0.5 - x)
+    q = u * x
+    return q * (5.0 - 4.0 * p), p * (5.0 - 4.0 * q)
+
+
+def exp_approx(x):
+    """Approximation of exp(-2*pi*x) ~= (1 - x)^5, accurate for x in [0, 1]
+    (the one-pole lowpass coefficient)."""
+    o = 1.0 - x
+    o2 = o * o
+    return o2 * o2 * o
+
+
+__all__ = ["tan_approx_parts", "exp_approx"]

@@ -1,0 +1,326 @@
+// fused_synth.cu — the fused formant synthesizer for Hopper (sm_90a).
+//
+// Replaces grail_tpu/synth/kernel_fused.py::_fused_kernel (the Pallas TPU
+// kernel behind synth_fused_pallas) in its 'host' mode, with the Q32
+// fixed-point carrier or the in-kernel exact f32 carrier (kcar). Per sample
+// it runs the whole reference chain: element index by boundary count, the
+// cur/next rows, blend alpha and the 4-case pick; value-noise jitter from
+// the shared exact (phi, cell) schedule; the carrier phase; polyBLEP saw;
+// closed-form Lehmer noise; the seven one-pole + SVF coefficient streams;
+// and the sequential one-pole lowpass + 8-formant SVF recurrence.
+//
+// What bounds it on this card: not bytes and not FLOPs. Inputs are a few
+// KB of tables per utterance plus an 8 B/sample schedule shared by all
+// utterances; the output is 4 B/sample. The bound is dependency latency:
+// the recurrence is sequential in time, so per chunk of 128 samples only 8
+// threads (one per formant) walk 128 dependent steps of ~15 float ops,
+// while 120 threads wait; and a batch of B utterances gives only B blocks
+// for 132 SMs. The design keeps everything but the recurrence off that
+// critical path: one block of 128 threads per utterance; per chunk, one
+// thread per sample computes the feed-forward part (phases A-C) into shared
+// memory as seven [128][8] coefficient streams (28 KB), then 8 threads run
+// the recurrence from shared memory, then one thread per sample sums the
+// formants and writes the output. The TPU kernel's carry across grid steps
+// becomes a loop over chunks inside the block, with lp/b/c, the Q32 phase,
+// the Lehmer seed and the f32 carrier phase in registers. Filling the card
+// (more than one utterance's time axis per SM, or a split of each
+// utterance's time axis over several blocks) is later work.
+//
+// Numerics: build with -fmad=false and without --use_fast_math, so every
+// float op rounds as in the plain PyTorch version (synth_fused_reference):
+// no a*b+c is contracted, and phase/f, 1/den stay IEEE-rounded divisions.
+// Lehmer and Q32 arithmetic are uint32 (wrapping; signed overflow would be
+// undefined). The Q32 scan is a modular sum, so its order does not matter.
+// Where the TPU kernel extracted rows with masked FMAs over a 3-row basis,
+// this kernel gathers the cur/next rows per sample: the TPU form equals the
+// plain where-chain bit for bit, so the values are the same, and interior
+// zero-length elements need no special case.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define CHUNK 128      // samples per chunk = threads per block
+#define NF 8           // formants
+#define NSCAL 4        // scal row: frequency, cum_length, blend_length, has_sound
+#define NVEC (6 * NF)  // vec row: ff, bw, smooth, breath, turb, amp (8 each)
+
+// Inclusive scan of v over the block (wrapping uint32 adds); *total gets
+// the block-wide sum. Contains one __syncthreads.
+__device__ __forceinline__ uint32_t block_incl_scan(uint32_t v,
+                                                    uint32_t* s_warp,
+                                                    uint32_t* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) s_warp[warp] = v;
+  __syncthreads();
+  uint32_t off = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < CHUNK / 32; ++w) {
+    const uint32_t x = s_warp[w];
+    if (w < warp) off += x;
+    tot += x;
+  }
+  *total = tot;
+  return v + off;
+}
+
+// The 4-case pick of the sequencer: the blend of cur and next when both
+// sound, else whichever sounds, else the silent default; silent past the
+// utterance's end.
+__device__ __forceinline__ float pick(float c, float n, float sil, float alf,
+                                      float one_m, bool valid, bool hs_c,
+                                      bool hs_n) {
+  if (!valid) return sil;
+  if (hs_c && hs_n) return c * alf + n * one_m;
+  if (hs_c) return c;
+  if (hs_n) return n;
+  return sil;
+}
+
+__global__ void __launch_bounds__(CHUNK)
+fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
+                   const float* __restrict__ vec,
+                   const float* __restrict__ latp,
+                   const float* __restrict__ latf,
+                   const float* __restrict__ lata,
+                   const float* __restrict__ par,
+                   const uint32_t* __restrict__ leh,
+                   const float* __restrict__ phi,
+                   const int* __restrict__ cell,
+                   const float* __restrict__ sf_in,
+                   const int* __restrict__ si_in, float* __restrict__ audio,
+                   float* __restrict__ sf_out, int* __restrict__ si_out, int E,
+                   int W, int T, int kcar) {
+  __shared__ float s_alpha[CHUNK][NF];   // after D: the output terms b' + b
+  __shared__ float s_d[CHUNK][NF];
+  __shared__ float s_q1[CHUNK][NF];
+  __shared__ float s_q2[CHUNK][NF];
+  __shared__ float s_m11[CHUNK][NF];
+  __shared__ float s_m21[CHUNK][NF];
+  __shared__ float s_m22[CHUNK][NF];
+  __shared__ float s_car[CHUNK];         // kcar: frequency in, phase out
+  __shared__ uint32_t s_warp[CHUNK / 32];
+
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int* nb = n + (size_t)b * E;
+  const float* scb = scal + (size_t)b * E * NSCAL;
+  const float* vcb = vec + (size_t)b * E * NVEC;
+  const float* lpb = latp + (size_t)b * W;
+  const float* lfb = latf + (size_t)b * W * NF;
+  const float* lab = lata + (size_t)b * W * NF;
+  const float jdf = par[b * 4 + 0];
+  const float jdff = par[b * 4 + 1];
+  const float jda = par[b * 4 + 2];
+  const float dt = par[b * 4 + 3];
+  const int n_last = nb[E - 1];
+  // Lehmer: sample t of a chunk has state A^(t+1)*seed + S_(t+1), where
+  // seed is the previous chunk's last state
+  const uint32_t leh_a = leh[t], leh_s = leh[CHUNK + t];
+  const uint32_t leh_a_end = leh[CHUNK - 1], leh_s_end = leh[2 * CHUNK - 1];
+
+  uint32_t q32 = (uint32_t)si_in[b * 3 + 0];
+  uint32_t seed = (uint32_t)si_in[b * 3 + 1];
+  float kphase = __int_as_float(si_in[b * 3 + 2]);
+  float lp = 0.f, bs = 0.f, cs = 0.f;
+  if (t < NF) {
+    lp = sf_in[b * 3 * NF + t];
+    bs = sf_in[b * 3 * NF + NF + t];
+    cs = sf_in[b * 3 * NF + 2 * NF + t];
+  }
+
+  for (int c0 = 0; c0 < T; c0 += CHUNK) {
+    const int k = c0 + t;   // 0-based sample; k1 is the reference's 1-based
+    const int k1 = k + 1;
+
+    // ---- A: element index = count of end samples below k1 (n is sorted)
+    int lo = 0, hi = E;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (nb[mid] < k1) lo = mid + 1; else hi = mid;
+    }
+    const int jc = min(lo, E - 1);
+    const int jn = min(jc + 1, E - 1);
+    const bool has_next = jc < E - 1;
+    const float* rc = scb + jc * NSCAL;
+    const float* rn = scb + jn * NSCAL;
+    const bool valid = (k1 >= 1) && (k1 <= n_last);
+    const float vm = valid ? 1.f : 0.f;
+    const float k1f = (float)k1;
+    const float alf = fminf(fmaxf((rc[1] - k1f * dt) / rc[2], 0.f), 1.f);
+    const float one_m = 1.f - alf;
+    const bool hs_c = rc[3] > 0.5f;
+    const bool hs_n = (rn[3] > 0.5f) && has_next;
+    const float fr_e = pick(rc[0], rn[0], 0.25f, alf, one_m, valid, hs_c,
+                            hs_n);
+
+    // ---- B: jitter lattices at cells cl and cl + 1
+    const int cl = min(max(cell[k], 0), W - 2);
+    const float ph = phi[k];
+    const float pitch = (lpb[cl] * (1.f - ph) + lpb[cl + 1] * ph) * vm;
+    const float freq_j = fr_e + pitch * jdf;
+
+    // ---- C: carrier phase (pre-update) --------------------------------
+    float phase;
+    if (kcar) {
+      s_car[t] = freq_j;
+      __syncthreads();
+      if (t == 0) {
+        float p = kphase;
+        for (int i = 0; i < CHUNK; ++i) {
+          const float f = s_car[i];
+          s_car[i] = p;
+          p = p + f;
+          if (p >= 1.f) p = p - 1.f;
+        }
+        kphase = p;
+      }
+      __syncthreads();
+      phase = s_car[t];
+    } else {
+      const uint32_t fq = __float2uint_rz(freq_j * 4294967296.0f);
+      uint32_t total;
+      const uint32_t incl = block_incl_scan(fq, s_warp, &total);
+      phase = __uint2float_rn(q32 + (incl - fq)) * 2.3283064365386963e-10f;
+      q32 += total;
+    }
+
+    // polyBLEP saw (reference src/lib.rs:503-517)
+    const float t0 = phase / freq_j;
+    const float first = 2.f * t0 - t0 * t0 - 1.f;
+    const float t1 = (phase - 1.f) / freq_j;
+    const float last = t1 * t1 + 2.f * t1 + 1.f;
+    const float pb = phase < freq_j ? first
+                                    : (phase > 1.f - freq_j ? last : 0.f);
+    const float saw = 2.f * phase - 1.f - pb;
+
+    // Lehmer noise
+    const uint32_t st = leh_a * seed + leh_s;
+    const float nz = (__uint_as_float((st >> 9) | 0x3F800000u) - 1.5f) * 2.f;
+    seed = leh_a_end * seed + leh_s_end;
+
+    const float* vc = vcb + jc * NVEC;
+    const float* vn = vcb + jn * NVEC;
+    const float* fc = lfb + cl * NF;
+    const float* ac = lab + cl * NF;
+    const float jdff_m = vm * jdff;
+    const float jda_m = vm * (0.5f * jda);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float ff_e = pick(vc[f], vn[f], 0.25f, alf, one_m, valid, hs_c,
+                              hs_n);
+      const float bw_e = pick(vc[NF + f], vn[NF + f], 0.25f, alf, one_m,
+                              valid, hs_c, hs_n);
+      const float sm_e = pick(vc[2 * NF + f], vn[2 * NF + f], 0.25f, alf,
+                              one_m, valid, hs_c, hs_n);
+      const float br_e = pick(vc[3 * NF + f], vn[3 * NF + f], 0.f, alf,
+                              one_m, valid, hs_c, hs_n);
+      const float tb_e = pick(vc[4 * NF + f], vn[4 * NF + f], 0.f, alf,
+                              one_m, valid, hs_c, hs_n);
+      // amplitude: lerp when both sound; fade out into a silent next
+      // (amp*alf); fade in out of a silent cur (amp*(1-alf))
+      const float amc = vc[5 * NF + f], amn = vn[5 * NF + f];
+      float am_e = 0.f;
+      if (valid) {
+        if (hs_c && hs_n) am_e = amc * alf + amn * one_m;
+        else if (hs_c) am_e = amc * alf;
+        else if (hs_n) am_e = amn * one_m;
+      }
+      const float form = fc[f] + (fc[NF + f] - fc[f]) * ph;
+      const float ampn = ac[f] + (ac[NF + f] - ac[f]) * ph;
+      const float ff_j = ff_e + form * jdff_m;
+      const float am_j = am_e * (1.f - (ampn + 1.f) * jda_m);
+
+      const float nw = saw + (nz - saw) * br_e;
+      const float o = 1.f - sm_e;                  // exp_approx
+      const float o2 = o * o;
+      const float alpha = o2 * o2 * o;
+      const float tamp = (1.f + (nz - 1.f) * tb_e) * am_j;
+      // SVF coefficients with one division (tan_approx_parts: g = N/D)
+      const float x = ff_j;
+      const float u = 1.f - x;
+      const float v = x + 0.5f;
+      const float p = v * (0.5f - x);
+      const float q = u * x;
+      const float N = q * (5.f - 4.f * p);
+      const float D = p * (5.f - 4.f * q);
+      const float fD2 = x * (D * D);
+      const float fN2 = x * (N * N);
+      const float ND = N * D;
+      const float r = 1.f / (fD2 + fN2 + bw_e * ND);
+      const float a1 = fD2 * r;
+      const float a2 = (x * ND) * r;
+      const float a3c = fN2 * r;
+      const float m21 = 2.f * a2;
+      s_alpha[t][f] = alpha;
+      s_d[t][f] = (1.f - alpha) * nw;
+      s_q1[t][f] = m21 * tamp;
+      s_q2[t][f] = (2.f * a3c) * tamp;
+      s_m11[t][f] = 2.f * a1 - 1.f;
+      s_m21[t][f] = m21;
+      s_m22[t][f] = 1.f - 2.f * a3c;
+    }
+    __syncthreads();
+
+    // ---- D: the sequential recurrence, one thread per formant ----------
+    if (t < NF) {
+      const int f = t;
+      for (int i = 0; i < CHUNK; ++i) {
+        lp = s_alpha[i][f] * lp + s_d[i][f];
+        const float m21 = s_m21[i][f];
+        const float nbv = s_m11[i][f] * bs - m21 * cs + s_q1[i][f] * lp;
+        const float ncv = m21 * bs + s_m22[i][f] * cs + s_q2[i][f] * lp;
+        s_alpha[i][f] = nbv + bs;
+        bs = nbv;
+        cs = ncv;
+      }
+    }
+    __syncthreads();
+
+    // ---- output: 0.25 * sum over formants, zero past the end ----------
+    float y = s_alpha[t][0];
+#pragma unroll
+    for (int f = 1; f < NF; ++f) y = y + s_alpha[t][f];
+    audio[(size_t)b * T + k] = (y * 0.25f) * vm;
+    __syncthreads();   // shared streams are rewritten by the next chunk
+  }
+
+  if (t < NF) {
+    sf_out[b * 3 * NF + t] = lp;
+    sf_out[b * 3 * NF + NF + t] = bs;
+    sf_out[b * 3 * NF + 2 * NF + t] = cs;
+  }
+  if (t == 0) {
+    si_out[b * 3 + 0] = kcar ? si_in[b * 3 + 0] : (int)q32;
+    si_out[b * 3 + 1] = (int)seed;
+    si_out[b * 3 + 2] = kcar ? __float_as_int(kphase) : si_in[b * 3 + 2];
+  }
+}
+
+extern "C" {
+
+// Launches one block per utterance on `stream`; returns cudaGetLastError().
+int grail_fused_synth(const int* n, const float* scal, const float* vec,
+                      const float* latp, const float* latf, const float* lata,
+                      const float* par, const uint32_t* leh, const float* phi,
+                      const int* cell, const float* sf_in, const int* si_in,
+                      float* audio, float* sf_out, int* si_out, int B, int E,
+                      int W, int T, int kcar, void* stream) {
+  fused_synth_kernel<<<B, CHUNK, 0, (cudaStream_t)stream>>>(
+      n, scal, vec, latp, latf, lata, par, leh, phi, cell, sf_in, si_in,
+      audio, sf_out, si_out, E, W, T, kcar);
+  return (int)cudaGetLastError();
+}
+
+int grail_fused_synth_chunk(void) { return CHUNK; }
+
+const char* grail_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"
