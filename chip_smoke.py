@@ -3,36 +3,53 @@
 
     python3 chip_smoke.py
 
-Run it from the root of a checkout: it builds the fused kernel from the
+Run it from the root of a checkout: it builds the kernels from the
 checkout's sources (nvcc, into build/grail_tpu_torch/) and imports nothing
 of JAX. Phases, one line each; any failure raises and exits non-zero:
 
   1. device — needs torch.cuda; prints nvidia-smi's name and power limit.
-  2. build — compiles grail_tpu_torch/synth/csrc/fused_synth.cu.
-  3. kernel vs plain — bench.py's 64 texts, voice generic, T = 65536, both
-     carrier modes: final integer state bit-equal, audio < -100 dB per
-     utterance and max-abs <= 1e-5 against the plain PyTorch version on the
-     same card.
-  4. main path — synthesize_batch(64 texts, device="cuda"): the kernel's
-     launch count must advance; outputs finite, of length
-     floor(cum_length[-1] * sr); two short utterances held against the
-     device="cpu" path at < -100 dB.
-  5. kernel vs plain and timing at the phase-4 shapes (B = 64 and the T
-     synthesize_batch pads to, seeds 0, Q32): the kernel's output held
-     against one run of the plain version as in phase 3; the kernel's time
-     (CUDA events, median of 5 after a warm-up) beside the plain run's; the
-     host stages, the end-to-end synthesize_batch wall time and aggregate
-     x realtime, each beside the card's name and power limit.
+  2. build — compiles every source under grail_tpu_torch/synth/csrc/: the
+     fused synthesizer (fused_synth.cu) and the split's Q32 seam pre-pass
+     (phase_q32_pre.cu).
+  3. kernel vs plain, unsplit — bench.py's 64 texts, voice generic,
+     T = 65536, both carrier modes: final integer state bit-equal, audio
+     < -100 dB per utterance and max-abs <= 1e-5 against the plain PyTorch
+     version on the same card.
+  4. main path — synthesize_batch(64 texts, device="cuda") must take the
+     overlap-save split (S > 1, from the card's resident-block capacity)
+     and launch both kernels; outputs finite, of length
+     floor(cum_length[-1] * sr); two short utterances held against the CPU
+     split at the same S at < -100 dB. Then synthesize() of a 2 s text
+     alone: split too, both kernels launched, held against the CPU split.
+     Then the unsplit route, synthesize_batch(64 texts, exact_carrier=True):
+     S = 1, the fused kernel launched and the pre-pass not; two short
+     utterances held against the CPU's exact carrier at < -100 dB.
+  5. unsplit kernel vs plain and timing at the phase-4 texts (B = 64,
+     T = round_up(maxN, 4096), seeds 0, Q32), as phase 3; the kernel's time
+     (CUDA events, median of 5 after a warm-up) beside one plain run's.
+  6. the split at the main path's shapes (B = 64, S and T as phase 4):
+     the pre-pass kernel's [nb, B] seam phases bit-equal to its plain
+     version's; each segment boundary's phase bit-equal to the final Q32
+     state of unsplit kernel 1 run to that sample; split kernel 1 against
+     its plain version over the S*B lanes as in phase 3; the split output
+     against the unsplit Q32 program on the same tables (< -90 dB). Times
+     of both kernels beside their plain versions'.
+  7. end to end — host stages, synthesize_batch(64 texts) and
+     synthesize(2 s text) wall times and aggregate x realtime, each beside
+     the card's name and power limit.
 
-Then one JSON line naming each kernel with its launches, error and times,
-and the last line {"ok": true, "device": {...}}.
+Then one JSON line naming each kernel with its launches (the main path's
+run), error, times and the shape they were taken at (fused_synth: the
+split's, with the unsplit time beside it), and the last line
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --scaling
 
-adds, before the JSON lines, the kernel's time at B = 1 ... 1056 over the
-phase-4 T, the exact carrier's at B = 64, and the host frontend split into
-text_to_phoneme_elems and score_from_phoneme_elems; it also writes them to
-chiprun_out/chip_smoke_scaling.json.
+adds, before the JSON lines, the unsplit kernel's time at B = 1 ... 1056
+over the phase-5 T, the exact carrier's at B = 64, both kernels' times over
+the segment count S at B = 64 and at B = 1 (2 s), and the host frontend
+split into text_to_phoneme_elems and score_from_phoneme_elems; it also
+writes them to chiprun_out/chip_smoke_scaling.json.
 """
 
 import json
@@ -45,10 +62,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 64
 SCALING_B = (1, 64, 132, 264, 528, 1056)
+SCALING_S = {64: (1, 2, 4, 8, 16), 1: (1, 8, 32, 64)}
 T_CHECK = 65536
 REPS = 5
 TOL_DB = -100.0
 TOL_ABS = 1e-5
+SPLIT_TOL_DB = -90.0   # split against unsplit: the JAX suite's bound
+SOLO_TEXT = "aea"      # 88,190 samples at 44.1 kHz: a 2 s utterance
 
 
 def bench_texts():
@@ -72,6 +92,33 @@ def median_ms(fn, reps=REPS):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """(result, CUDA-event time in ms) of one run of fn()."""
+    import torch
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def host_ms(fn, sync=False):
+    """Median host-clock time of fn() over REPS runs, after one warm-up."""
+    import torch
+
+    times = []
+    for _ in range(REPS + 1):
+        t0 = time.perf_counter()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
 
 
 def main():
@@ -103,41 +150,30 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     ptxas = [ln.strip() for ln in _build.build_info["log"].splitlines()
-             if "registers" in ln]
+             if "registers" in ln or "Compiling entry" in ln]
     print(f"[2 build] {os.path.relpath(_build.build_info['path'], ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          f"{time.perf_counter() - t0:.2f} s (nvcc, all sources at once, "
           f"{_build.build_info['seconds']:.2f} s); {'; '.join(ptxas)}",
           flush=True)
 
     import grail_tpu_torch as g
-    from grail_tpu_torch.api import BLOCK_SIZE, _round_up, _score_num_samples
+    import grail_tpu_torch.api as papi
+    from grail_tpu_torch.api import BLOCK_SIZE, WARMUP, _round_up
     from grail_tpu_torch.synth import kernel_fused as kf
-    from grail_tpu_torch.synth.jitter import JitterLattice, build_lattice
     from grail_tpu_torch.synth.schedule import device_window
-    from grail_tpu_torch.synth.score import pad_score, stack_scores
     from grail_tpu_torch.utils import sample_error_db
 
     texts = bench_texts()
     voice = g.get_voice("generic")
     sr = float(voice.sample_rate)
     inc = voice.jitter_frequency
-    jparams = (inc, voice.jitter_delta_frequency,
-               voice.jitter_delta_formant_frequency,
-               voice.jitter_delta_amplitude)
 
     def frontend():   # what synthesize_batch runs on the host per batch
-        scores = [g.text_to_score(t) for t in texts]
-        E = max(s.num_elems for s in scores)
-        return [pad_score(s, E) for s in scores]
+        return [g.text_to_score(t) for t in texts]
 
-    def tables_for(T, scores):
-        # seed 0 for every utterance, as synthesize_batch defaults to: one
-        # lattice, stacked per utterance
-        lat = build_lattice(0, T, inc)
-        lats = JitterLattice(*(np.stack([f] * len(scores)) for f in lat))
-        return (kf.build_tables(stack_scores(scores), lats, jparams, sr,
-                                device=dev),
-                device_window(inc, 0, T, dev))
+    def batch_for(scores):
+        # seed 0 for every utterance, as synthesize_batch defaults to
+        return papi._Batch(scores, voice, None)
 
     def zero_state(nb=B):
         return (torch.zeros(nb, 24, dtype=torch.float32, device=dev),
@@ -145,7 +181,7 @@ def main():
 
     def check(label, k, r):
         """Kernel output k against plain output r, both (audio, sf, si):
-        integer state bit-equal, audio < TOL_DB per utterance and max-abs
+        integer state bit-equal, audio < TOL_DB per lane and max-abs
         <= TOL_ABS, filter state max-abs <= TOL_ABS. Returns max-abs."""
         (a, sf_k, si_k), (p, sf_r, si_r) = k, r
         torch.cuda.synchronize()
@@ -162,14 +198,53 @@ def main():
             raise AssertionError(f"{label}: kernel vs plain max-abs {err}, "
                                  f"worst {db} dB, state {sf_err}")
         print(f"[kernel vs plain] {label}: integer state bit-equal; audio "
-              f"max-abs {err}, worst utterance {db} dB, filter state "
+              f"max-abs {err}, worst lane {db} dB, filter state "
               f"max-abs {sf_err}, bit-equal samples "
               f"{float((a == p).mean())}", flush=True)
         return err
 
-    # ---- 3: kernel vs plain on the card --------------------------------
+    def drive(label, fn, expect):
+        """Run one path with every launch count set to 0 just before it;
+        returns (outputs, launch counts) and fails unless exactly the
+        kernels in `expect` were launched (each at least once)."""
+        for k in kf.LAUNCHES:
+            kf.LAUNCHES[k] = 0
+        outs = fn()
+        torch.cuda.synchronize()
+        counts = dict(kf.LAUNCHES)
+        if any((n >= 1) != (k in expect) for k, n in counts.items()):
+            raise AssertionError(f"{label} launched {counts}, expected "
+                                 f"exactly {sorted(expect)}")
+        return outs, counts
+
+    def against_cpu(label, on_card, on_cpu):
+        """The card's outputs against the CPU's on the same route."""
+        dbs = [sample_error_db(a.cpu().numpy(), b.numpy())
+               for a, b in zip(on_card, on_cpu)]
+        if not all(a.shape == b.shape for a, b in zip(on_card, on_cpu)) \
+                or not all(d < TOL_DB for d in dbs):
+            raise AssertionError(f"{label}: cuda vs cpu {dbs} dB")
+        return dbs
+
+    def check_outputs(label, outs, Ns):
+        for o, n in zip(outs, Ns):
+            if o.device.type != "cuda" or tuple(o.shape) != (n,):
+                raise AssertionError(f"{label}: output {tuple(o.shape)} on "
+                                     f"{o.device}, expected ({n},) on cuda")
+            if not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"{label}: non-finite output")
+
+    def against_cpu_split(label, text_list, on_card, S):
+        """The card's outputs against the CPU's split at the same S."""
+        scores = [g.text_to_score(t) for t in text_list]
+        return against_cpu(label, on_card, papi._synthesize_split(
+            scores, voice, S=S, device="cpu"))
+
+    # ---- 3: unsplit kernel vs plain on the card ------------------------
     scores = frontend()
-    tables, (phi, cell) = tables_for(T_CHECK, scores)
+    batch = batch_for(scores)
+    tables = batch.tables(T_CHECK, dev)
+    phi, cell = device_window(inc, 0, T_CHECK, dev)
     sf, si = zero_state()
     max_abs = 0.0
     for kcar in (False, True):
@@ -179,105 +254,215 @@ def main():
             kf.fused_synth_cuda(*args), kf.synth_fused_reference(*args)))
 
     # ---- 4: the main path ----------------------------------------------
-    kf.LAUNCHES["fused_synth"] = 0
-    outs = g.synthesize_batch(texts, device="cuda")
-    torch.cuda.synchronize()
-    launches = kf.LAUNCHES["fused_synth"]
-    if launches < 1:
-        raise AssertionError("synthesize_batch did not launch fused_synth")
-    Ns = [_score_num_samples(s, sr) for s in scores]
-    for t, o, n in zip(texts, outs, Ns):
-        if o.device.type != "cuda" or tuple(o.shape) != (n,):
-            raise AssertionError(f"{t!r}: output {tuple(o.shape)} on "
-                                 f"{o.device}, expected ({n},) on cuda")
-        if not bool(torch.isfinite(o).all()):
-            raise AssertionError(f"{t!r}: non-finite output")
+    Ns = batch.Ns
+    slots = kf.fused_synth_slots(dev)
+    _, _, S, T_split = g.route(B, max(Ns), None, dev, sr)
+    if S < 2:
+        raise AssertionError(f"route picked S={S} for the {B} texts")
+    both = {"fused_synth", "phase_q32_pre"}
+    outs, launches = drive("synthesize_batch",
+                           lambda: g.synthesize_batch(texts, device="cuda"),
+                           both)
+    check_outputs("synthesize_batch", outs, Ns)
     short = ["ae", "ea"]
-    on_card = [o.cpu().numpy() for o in g.synthesize_batch(short,
-                                                           device="cuda")]
-    on_cpu = [o.numpy() for o in g.synthesize_batch(short, device="cpu")]
-    db_cpu = [sample_error_db(a, b) for a, b in zip(on_card, on_cpu)]
-    if not all(len(a) == len(b) for a, b in zip(on_card, on_cpu)) or \
-            not all(d < TOL_DB for d in db_cpu):
-        raise AssertionError(f"cuda vs cpu path: {db_cpu} dB")
+    s_short = g.route(2, max(papi._Batch([g.text_to_score(t) for t in short],
+                                         voice, None).Ns),
+                      None, dev, sr)[2]
+    db_cpu = against_cpu_split("'ae','ea'", short,
+                               g.synthesize_batch(short, device="cuda"),
+                               s_short)
     audio_s = sum(Ns) / sr
     print(f"[4 main path] synthesize_batch({B} texts, device='cuda'): "
-          f"fused_synth launches {launches}; {B} finite outputs of "
+          f"slots {slots} (resident blocks of fused_synth on this card), "
+          f"S={S}, T={T_split}, {S * B} lanes of {T_split // S + WARMUP} "
+          f"samples; launches {launches}; {B} finite outputs of "
           f"floor(cum_length[-1]*sr) samples, {audio_s:.3f} s of audio; "
-          f"'ae','ea' cuda vs cpu path {db_cpu} dB", flush=True)
+          f"'ae','ea' (S={s_short}) cuda vs cpu split {db_cpu} dB",
+          flush=True)
+    solo_score = g.text_to_score(SOLO_TEXT)
+    solo_n = papi._Batch([solo_score], voice, None).Ns[0]
+    _, _, s_solo, t_solo = g.route(1, solo_n, None, dev, sr)
+    if s_solo < 2:
+        raise AssertionError(f"route picked S={s_solo} for {SOLO_TEXT!r}")
+    solo, solo_launches = drive(
+        "synthesize", lambda: g.synthesize(SOLO_TEXT, device="cuda"), both)
+    check_outputs("synthesize", [solo], [solo_n])
+    db_solo = against_cpu_split(repr(SOLO_TEXT), [SOLO_TEXT], [solo], s_solo)
+    print(f"[4 main path] synthesize({SOLO_TEXT!r}, device='cuda'), "
+          f"{solo_n / sr:.3f} s: S={s_solo}, T={t_solo}; launches "
+          f"{solo_launches}; cuda vs cpu split {db_solo} dB", flush=True)
+    # the unsplit route: the exact carrier (also the automatic choice past
+    # EXACT_CARRIER_AUTO_SECONDS) cannot split, so it launches kernel 1 alone
+    route_x = g.route(B, max(Ns), True, dev, sr)
+    if route_x[1:3] != ("kcar", 1):
+        raise AssertionError(f"exact carrier routed as {route_x}")
+    outs_x, launches_x = drive(
+        "synthesize_batch exact_carrier",
+        lambda: g.synthesize_batch(texts, device="cuda", exact_carrier=True),
+        {"fused_synth"})
+    check_outputs("synthesize_batch exact_carrier", outs_x, Ns)
+    db_x = against_cpu(
+        "'ae','ea' exact carrier",
+        g.synthesize_batch(short, device="cuda", exact_carrier=True),
+        g.synthesize_batch(short, device="cpu", exact_carrier=True))
+    del outs_x
+    print(f"[4 main path] synthesize_batch({B} texts, device='cuda', "
+          f"exact_carrier=True): unsplit (S=1, T={route_x[3]}, carrier "
+          f"kcar); launches {launches_x}; {B} finite outputs; 'ae','ea' "
+          f"cuda vs cpu (both unsplit, kcar) {db_x} dB", flush=True)
 
-    # ---- 5: kernel vs plain, and timing, at the phase-4 shapes ---------
+    # ---- 5: unsplit kernel vs plain, and timing, at the phase-4 texts ---
     T = _round_up(max(Ns), BLOCK_SIZE)
-    tables, (phi, cell) = tables_for(T, scores)
-    sf, si = zero_state()
+    tables = batch.tables(T, dev)
+    phi, cell = device_window(inc, 0, T, dev)
     args = (tables, phi, cell, sf, si, T, False)
-    kernel_ms = median_ms(lambda: kf.fused_synth_cuda(*args))
+    unsplit_ms = median_ms(lambda: kf.fused_synth_cuda(*args))
     k_out = kf.fused_synth_cuda(*args)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    r_out = kf.synth_fused_reference(*args)
-    e1.record()
-    torch.cuda.synchronize()
-    plain_ms = e0.elapsed_time(e1)
-    max_abs = max(max_abs, check(f"[5] carrier=q32 B={B} T={T}", k_out,
-                                 r_out))
+    r_out, unsplit_plain_ms = once_ms(lambda: kf.synth_fused_reference(*args))
+    max_abs = max(max_abs, check(f"[5] unsplit carrier=q32 B={B} T={T}",
+                                 k_out, r_out))
+    del k_out, r_out, tables
+    print(f"[5 timing] fused_synth unsplit B={B} T={T} q32: kernel "
+          f"{unsplit_ms} ms (CUDA events, median of {REPS}), plain PyTorch "
+          f"{unsplit_plain_ms} ms (CUDA events, one run); card {card}",
+          flush=True)
+
+    # ---- 6: the split at the main path's shapes --------------------------
+    split = split_inputs(papi, kf, batch, T_split, S, dev)
+    tables, pre, T_ = split["tables"], split["pre"], T_split
+    q_k = kf.phase_q32_pre_block(tables, pre, T_, BLOCK_SIZE, "kernel")
+    q_p, pre_plain_ms = once_ms(lambda: kf.phase_q32_pre_block(
+        tables, pre, T_, BLOCK_SIZE, "plain"))
+    if not torch.equal(q_k, q_p):
+        bad = int((q_k != q_p).sum())
+        raise AssertionError(f"[6] phase_q32_pre: {bad} seam phases differ")
+    pre_ms = median_ms(lambda: kf.phase_q32_pre_cuda(tables, *pre, T_))
+    print(f"[6 split] phase_q32_pre B={B} T={T_}: [{T_ // BLOCK_SIZE}, {B}] "
+          f"seam phases bit-equal to plain; kernel {pre_ms} ms (median of "
+          f"{REPS}), plain PyTorch {pre_plain_ms} ms (one run); card {card}",
+          flush=True)
+    sf0, si0 = zero_state()
+    for s in range(1, S):
+        n = s * (T_ // S) - WARMUP
+        _, _, si_n = kf.fused_synth_cuda(tables, pre[0][:n], pre[1][:n], sf0,
+                                         si0, n, False)
+        want = kf._u32_to_i32(q_k[n // BLOCK_SIZE])
+        if not torch.equal(si_n[:, 0], want):
+            raise AssertionError(f"[6] seam {s} (sample {n}): unsplit "
+                                 f"kernel 1's Q32 phase differs from the "
+                                 f"pre-pass's")
+    print(f"[6 split] seams: at each of the {S - 1} segment boundaries "
+          f"s*Ts - W the pre-pass's phase equals unsplit fused_synth's final "
+          f"Q32 state bit for bit", flush=True)
+    L, Text = S * B, T_ // S + WARMUP
+    sargs = split["args"]
+    split_ms = median_ms(lambda: kf.fused_synth_cuda(*sargs,
+                                                     g0=split["g0"]))
+    k_out = kf.fused_synth_cuda(*sargs, g0=split["g0"])
+    r_out, split_plain_ms = once_ms(lambda: kf.synth_fused_reference(
+        *sargs, g0=split["g0"]))
+    max_abs = max(max_abs, check(f"[6] split carrier=q32 {L} lanes x {Text}",
+                                 k_out, r_out))
     del k_out, r_out
-    print(f"[5 timing] fused_synth B={B} T={T} q32: kernel {kernel_ms} ms "
-          f"(CUDA events, median of {REPS}), plain PyTorch {plain_ms} ms "
-          f"(CUDA events, one run); card {card}", flush=True)
+    program_ms = median_ms(lambda: papi._split_program(tables, T_, S,
+                                                       "kernel", inc))
+    out_split = papi._split_program(tables, T_, S, "kernel", inc)
+    out_unsplit = kf.fused_synth_cuda(tables, *pre, sf0, si0, T_, False)[0]
+    a, r = out_split.cpu().numpy(), out_unsplit.cpu().numpy()
+    dbs = [sample_error_db(a[b, :n], r[b, :n]) for b, n in enumerate(Ns)]
+    err_su = max(float(np.abs(a[b, :n] - r[b, :n]).max())
+                 for b, n in enumerate(Ns))
+    if not max(dbs) < SPLIT_TOL_DB:
+        raise AssertionError(f"[6] split vs unsplit: worst {max(dbs)} dB")
+    print(f"[6 split] fused_synth split {L} lanes x {Text}: kernel "
+          f"{split_ms} ms (median of {REPS}), plain PyTorch {split_plain_ms} "
+          f"ms (one run); split program (pre-pass + tiling + kernel) "
+          f"{program_ms} ms; split vs unsplit Q32 on the same tables: worst "
+          f"utterance {max(dbs)} dB, max-abs {err_su}; card {card}",
+          flush=True)
+    del split, tables, out_split, out_unsplit
+    torch.cuda.empty_cache()
 
-    def host_ms(fn, sync=False):
-        times = []
-        for _ in range(REPS + 1):
-            t0 = time.perf_counter()
-            fn()
-            if sync:
-                torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times[1:])
-
+    # ---- 7: end to end ---------------------------------------------------
     front_ms = host_ms(frontend)
-    upload_ms = host_ms(lambda: tables_for(T, scores), sync=True)
-
-    def e2e():
-        g.synthesize_batch(texts, device="cuda")
-
-    e2e_ms = host_ms(e2e, sync=True)
-    print(f"[5 timing] host frontend {front_ms} ms, lattices + table build "
-          f"and upload {upload_ms} ms (schedule memoized), end-to-end synthesize_batch "
-          f"{e2e_ms} ms for {audio_s:.3f} s of audio: aggregate "
+    upload_ms = host_ms(lambda: batch.tables(T_split, dev), sync=True)
+    e2e_ms = host_ms(lambda: g.synthesize_batch(texts, device="cuda"),
+                     sync=True)
+    solo_ms = host_ms(lambda: g.synthesize(SOLO_TEXT, device="cuda"),
+                      sync=True)
+    print(f"[7 timing] host frontend {front_ms} ms, lattices + table build "
+          f"and upload {upload_ms} ms; end-to-end synthesize_batch {e2e_ms} "
+          f"ms for {audio_s:.3f} s of audio: aggregate "
           f"{audio_s / (e2e_ms / 1e3)} x realtime end to end, "
-          f"{audio_s / (kernel_ms / 1e3)} x realtime in the kernel; "
-          f"card {card}", flush=True)
+          f"{audio_s / (program_ms / 1e3)} x realtime in the split program; "
+          f"synthesize({SOLO_TEXT!r}) {solo_ms} ms for {solo_n / sr:.3f} s, "
+          f"{solo_n / sr / (solo_ms / 1e3)} x realtime; card {card}",
+          flush=True)
 
     if "--scaling" in sys.argv[1:]:
-        scaling(texts, scores, T, tables_for, zero_state, host_ms, card)
+        scaling(texts, batch, T, card, zero_state, dev)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_synth", "route": "cuda",
-        "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
-        "replaces": "grail_tpu/synth/kernel_fused.py:420",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+    # ms/plain_ms are at `shape` [lanes, samples per lane]: the split's for
+    # fused_synth, whose unsplit time at the same texts is unsplit_ms
+    print(json.dumps({"kernels": [
+        {"name": "fused_synth", "route": "cuda",
+         "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
+         "replaces": "grail_tpu/synth/kernel_fused.py:420",
+         "launches": launches["fused_synth"], "max_abs_err": max_abs,
+         "ms": split_ms, "plain_ms": split_plain_ms, "shape": [L, Text],
+         "unsplit_ms": unsplit_ms, "unsplit_plain_ms": unsplit_plain_ms,
+         "unsplit_shape": [B, T]},
+        {"name": "phase_q32_pre", "route": "cuda",
+         "source": "grail_tpu_torch/synth/csrc/phase_q32_pre.cu",
+         "replaces": "grail_tpu/synth/kernel_fused.py:1009",
+         "launches": launches["phase_q32_pre"],
+         "max_abs_err": float((q_k - q_p).abs().max()),
+         "ms": pre_ms, "plain_ms": pre_plain_ms, "shape": [B, T_]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def scaling(texts, scores, T, tables_for, zero_state, host_ms, card):
-    """Kernel time against the batch size, the exact carrier's cost, and the
-    host frontend's two stages; printed and written to chiprun_out/."""
+def split_inputs(papi, kf, batch, T, S, dev):
+    """The split of `batch` at S segments, as api._split_program runs it:
+    tables at T, the pre-pass schedule, and kernel 1's arguments over the
+    S*B lanes (tiled tables, segment schedule rows, sf, si, Ts + W, Q32)
+    with the per-lane offsets g0."""
+    from grail_tpu_torch.api import WARMUP
+
+    inc = batch.v0.jitter_frequency
+    tables = batch.tables(T, dev)
+    pre, _ = papi._split_sched(inc, T, S, dev)
+    tables_t, (phi, cell), state, q, g0 = papi._split_lanes(
+        tables, T, S, "kernel", inc)
+    sf, si = kf.state_rows(state, q)
+    return {"tables": tables, "pre": pre, "g0": g0,
+            "args": (tables_t, phi, cell, sf, si, T // S + WARMUP, False)}
+
+
+def scaling(texts, batch, T, card, zero_state, dev):
+    """Unsplit kernel time against the batch size, the exact carrier's
+    cost, both kernels' times against the segment count S, and the host
+    frontend's two stages; printed and written to chiprun_out/."""
     import torch
 
     import grail_tpu_torch as g
+    import grail_tpu_torch.api as papi
+    from grail_tpu_torch.api import BLOCK_SIZE, _round_up
     from grail_tpu_torch.synth import kernel_fused as kf
+    from grail_tpu_torch.synth.schedule import device_window
     from grail_tpu_torch.synth.score import score_from_phoneme_elems
 
-    out = {"card": card, "T": T, "kernel_ms_by_B": {}}
+    voice = g.get_voice("generic")
+    out = {"card": card, "T": T, "kernel_ms_by_B": {},
+           "slots": kf.fused_synth_slots(dev),
+           "choose_split": {}, "split_ms_by_S": {}}
+    phi, cell = device_window(voice.jitter_frequency, 0, T, dev)
     for nb in SCALING_B:
-        tables, (phi, cell) = tables_for(T, [scores[i % B]
-                                             for i in range(nb)])
+        sub = papi._Batch([batch.scores[i % B] for i in range(nb)], voice,
+                          None)
+        tables = sub.tables(T, dev)
         sf, si = zero_state(nb)
         for kcar in (False, True) if nb == B else (False,):
             ms = median_ms(lambda: kf.fused_synth_cuda(
@@ -288,18 +473,48 @@ def scaling(texts, scores, T, tables_for, zero_state, host_ms, card):
                 out["kernel_ms_by_B"][nb] = ms
         del tables
         torch.cuda.empty_cache()
-    voice = g.get_voice("generic")
+    solo = papi._Batch([g.text_to_score(SOLO_TEXT)], voice, None)
+    for nb, sub in ((B, batch), (1, solo)):
+        maxN = max(sub.Ns)
+        out["choose_split"][nb] = g.route(nb, maxN, None, dev,
+                                          voice.sample_rate)[2:]
+        rows = out["split_ms_by_S"][nb] = {}
+        for S in SCALING_S[nb]:
+            TS = _round_up(maxN, S * BLOCK_SIZE)
+            if S == 1:
+                tables = sub.tables(TS, dev)
+                ph, ce = device_window(voice.jitter_frequency, 0, TS, dev)
+                sf, si = zero_state(nb)
+                rows[S] = {"T": TS, "fused_synth_ms": median_ms(
+                    lambda: kf.fused_synth_cuda(tables, ph, ce, sf, si, TS,
+                                                False))}
+            else:
+                sp = split_inputs(papi, kf, sub, TS, S, dev)
+                rows[S] = {
+                    "T": TS,
+                    "phase_q32_pre_ms": median_ms(lambda: kf.phase_q32_pre_cuda(
+                        sp["tables"], *sp["pre"], TS)),
+                    "fused_synth_ms": median_ms(lambda: kf.fused_synth_cuda(
+                        *sp["args"], g0=sp["g0"])),
+                    "program_ms": median_ms(lambda: papi._split_program(
+                        sp["tables"], TS, S, "kernel",
+                        voice.jitter_frequency))}
+                del sp
+            torch.cuda.empty_cache()
     pelems = [g.text_to_phoneme_elems(t) for t in texts]
     out["text_to_phoneme_elems_ms"] = host_ms(
         lambda: [g.text_to_phoneme_elems(t) for t in texts])
     out["score_from_phoneme_elems_ms"] = host_ms(
         lambda: [score_from_phoneme_elems(p, voice) for p in pelems])
-    print(f"[6 scaling] fused_synth T={T} q32 kernel ms by B "
+    print(f"[8 scaling] fused_synth unsplit T={T} q32 kernel ms by B "
           f"{out['kernel_ms_by_B']}; kcar at B={B} "
           f"{out['kernel_ms_kcar_B64']} ms (CUDA events, median of {REPS}); "
-          f"host, {B} texts: text_to_phoneme_elems "
-          f"{out['text_to_phoneme_elems_ms']} ms, score_from_phoneme_elems "
-          f"{out['score_from_phoneme_elems_ms']} ms; card {card}", flush=True)
+          f"slots {out['slots']}; route's (S, T) {out['choose_split']}; "
+          f"split ms by S (B=64 texts; B=1 {SOLO_TEXT!r}) "
+          f"{json.dumps(out['split_ms_by_S'])}; host, {B} texts: "
+          f"text_to_phoneme_elems {out['text_to_phoneme_elems_ms']} ms, "
+          f"score_from_phoneme_elems {out['score_from_phoneme_elems_ms']} "
+          f"ms; card {card}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_scaling.json"),
               "w") as f:

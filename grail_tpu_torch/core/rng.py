@@ -92,6 +92,23 @@ def lehmer_chunk_tables(chunk: int) -> np.ndarray:
     return np.stack([powA[1:], S[1:]])
 
 
+def lehmer_skip(p: int):
+    """(A^p mod 2^32, S_p mod 2^32) for one skip distance p >= 0, as host
+    ints by affine exponentiation in O(log p) steps: the state p steps after
+    `seed` is A^p * seed + S_p. The split path seeds its segments with it."""
+    a, b = LEHMER_A, 1          # one step: x -> A*x + 1
+    ra, rb = 1, 0               # identity
+    p = int(p)
+    if p < 0:
+        raise ValueError(f"lehmer_skip distance must be >= 0, got {p}")
+    while p:
+        if p & 1:
+            ra, rb = (a * ra) & MASK32, (a * rb + b) & MASK32
+        a, b = (a * a) & MASK32, (a * b + b) & MASK32
+        p >>= 1
+    return ra, rb
+
+
 # ---------------------------------------------------------------------------
 # Tensor variants (int64 holding uint32 values)
 # ---------------------------------------------------------------------------
@@ -122,6 +139,6 @@ def lehmer_block_states(seed: torch.Tensor, n: int) -> torch.Tensor:
 
 __all__ = [
     "lehmer_affine", "lehmer_states", "np_random_f32_from_state",
-    "np_lehmer_draws", "lehmer_chunk_tables", "mul32",
+    "np_lehmer_draws", "lehmer_chunk_tables", "lehmer_skip", "mul32",
     "random_f32_from_state", "lehmer_block_states",
 ]

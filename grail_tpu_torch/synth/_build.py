@@ -1,10 +1,14 @@
-"""Build synth/csrc/fused_synth.cu with nvcc and bind it with ctypes.
+"""Build the kernels under synth/csrc/ with nvcc and bind them with ctypes.
 
-The kernel has a plain C interface (no PyTorch headers), so one nvcc call
-builds it in seconds. It is built at first use from the package's own
-source into build/grail_tpu_torch/ beside the package (the repository's
-build/ directory), keyed by a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.
+The kernels have a plain C interface (no PyTorch headers), so nvcc builds
+each source in seconds. At first use every `*.cu` under csrc/ is compiled,
+one nvcc per source, all started together, and linked into one library in
+build/grail_tpu_torch/ beside the package (the repository's build/
+directory). The library's name is a hash of every file under csrc/ (sources
+and shared headers) and of the flags, so an edit to any of them is rebuilt
+and a stale library is never loaded. The compiler's log (ptxas registers
+and shared memory per kernel) is kept beside the library and read back when
+the library is already built.
 """
 
 from __future__ import annotations
@@ -17,15 +21,14 @@ import threading
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_synth.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grail_tpu_torch"
 
 # sm_90a: Hopper. -fmad=false keeps every a*b+c as two rounded ops, and no
-# --use_fast_math keeps divisions IEEE, so the kernel rounds as the plain
-# PyTorch version does. -Xptxas=-v reports registers and shared memory.
+# --use_fast_math keeps divisions IEEE, so the kernels round as the plain
+# PyTorch versions do. -Xptxas=-v reports registers and shared memory.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -40,36 +43,68 @@ def _nvcc() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.grail_fused_synth.argtypes = [p] * 15 + [i, i, i, i, i, p]
+    lib.grail_fused_synth.argtypes = [p] * 16 + [i] * 7 + [p]
     lib.grail_fused_synth.restype = i
     lib.grail_fused_synth_chunk.argtypes = []
     lib.grail_fused_synth_chunk.restype = i
+    lib.grail_fused_synth_slots.argtypes = [i, ctypes.POINTER(i)]
+    lib.grail_fused_synth_slots.restype = i
+    lib.grail_phase_q32_pre.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.grail_phase_q32_pre.restype = i
+    lib.grail_phase_q32_pre_chunk.argtypes = []
+    lib.grail_phase_q32_pre_chunk.restype = i
     lib.grail_cuda_error_string.argtypes = [i]
     lib.grail_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _tag() -> str:
+    """Hash of every file under csrc/ (names and bytes) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile the kernel library if it is not built yet; return its path.
     Raises RuntimeError with the compiler's output if nvcc fails."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_synth_{tag}.so"
+    out = BUILD_DIR / f"libgrail_kernels_{_tag()}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        build_info.update(seconds=0.0, path=str(out))
+        log = log_path.read_text() if log_path.exists() else ""
+        build_info.update(seconds=0.0, log=log, path=str(out))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    stem = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [Path(f"{stem}.{src.stem}.o") for src in sources]
+    tmp = Path(f"{stem}.tmp")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = (res.stdout + res.stderr).strip()
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{log}")
-    os.replace(tmp, out)
-    build_info.update(seconds=seconds, log=log, path=str(out))
+    try:
+        procs = [subprocess.Popen(      # one nvcc per source, all at once
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0].strip() for proc in procs]
+        failed = [f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}"
+                  f"\n{text}" for proc, text in zip(procs, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        log = "\n".join(logs + [(res.stdout + res.stderr).strip()]).strip()
+        log_path.write_text(log)
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
+    build_info.update(seconds=time.perf_counter() - t0, log=log,
+                      path=str(out))
     return out
 
 
@@ -79,11 +114,13 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = _bind(ctypes.CDLL(str(build())))
-            from .kernel_fused import CHUNK
+            from .kernel_fused import CHUNK, CHUNK_PRE
 
             if lib.grail_fused_synth_chunk() != CHUNK:
                 raise RuntimeError("fused_synth.cu CHUNK differs from "
                                    "kernel_fused.CHUNK")
+            if lib.grail_phase_q32_pre_chunk() != CHUNK_PRE:
+                raise RuntimeError("phase_q32_pre.cu PRE_CHUNK differs from "
+                                   "kernel_fused.CHUNK_PRE")
             _lib = lib
         return _lib
-

@@ -7,7 +7,10 @@
 // cur/next rows, blend alpha and the 4-case pick; value-noise jitter from
 // the shared exact (phi, cell) schedule; the carrier phase; polyBLEP saw;
 // closed-form Lehmer noise; the seven one-pole + SVF coefficient streams;
-// and the sequential one-pole lowpass + 8-formant SVF recurrence.
+// and the sequential one-pole lowpass + 8-formant SVF recurrence. Each
+// lane may start at a sample offset g0 and read its own row of the
+// schedule: the overlap-save split runs S time segments of each utterance
+// as S lanes (s-major), seeded with exact phases by phase_q32_pre.cu.
 //
 // What bounds it on this card: not bytes and not FLOPs. Inputs are a few
 // KB of tables per utterance plus an 8 B/sample schedule shared by all
@@ -22,9 +25,9 @@
 // the recurrence from shared memory, then one thread per sample sums the
 // formants and writes the output. The TPU kernel's carry across grid steps
 // becomes a loop over chunks inside the block, with lp/b/c, the Q32 phase,
-// the Lehmer seed and the f32 carrier phase in registers. Filling the card
-// (more than one utterance's time axis per SM, or a split of each
-// utterance's time axis over several blocks) is later work.
+// the Lehmer seed and the f32 carrier phase in registers. The split fills
+// the card: grail_fused_synth_slots reports how many blocks it holds at
+// once, and the API picks the segment count S from it.
 //
 // Numerics: build with -fmad=false and without --use_fast_math, so every
 // float op rounds as in the plain PyTorch version (synth_fused_reference):
@@ -39,9 +42,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "seq_freq.cuh"
+
 #define CHUNK 128      // samples per chunk = threads per block
 #define NF 8           // formants
-#define NSCAL 4        // scal row: frequency, cum_length, blend_length, has_sound
 #define NVEC (6 * NF)  // vec row: ff, bw, smooth, breath, turb, amp (8 each)
 
 // Inclusive scan of v over the block (wrapping uint32 adds); *total gets
@@ -69,19 +73,6 @@ __device__ __forceinline__ uint32_t block_incl_scan(uint32_t v,
   return v + off;
 }
 
-// The 4-case pick of the sequencer: the blend of cur and next when both
-// sound, else whichever sounds, else the silent default; silent past the
-// utterance's end.
-__device__ __forceinline__ float pick(float c, float n, float sil, float alf,
-                                      float one_m, bool valid, bool hs_c,
-                                      bool hs_n) {
-  if (!valid) return sil;
-  if (hs_c && hs_n) return c * alf + n * one_m;
-  if (hs_c) return c;
-  if (hs_n) return n;
-  return sil;
-}
-
 __global__ void __launch_bounds__(CHUNK)
 fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
                    const float* __restrict__ vec,
@@ -92,10 +83,11 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
                    const uint32_t* __restrict__ leh,
                    const float* __restrict__ phi,
                    const int* __restrict__ cell,
+                   const int* __restrict__ g0,
                    const float* __restrict__ sf_in,
                    const int* __restrict__ si_in, float* __restrict__ audio,
                    float* __restrict__ sf_out, int* __restrict__ si_out, int E,
-                   int W, int T, int kcar) {
+                   int W, int T, int lanes_per_row, int row_stride, int kcar) {
   __shared__ float s_alpha[CHUNK][NF];   // after D: the output terms b' + b
   __shared__ float s_d[CHUNK][NF];
   __shared__ float s_q1[CHUNK][NF];
@@ -118,7 +110,10 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   const float jdff = par[b * 4 + 1];
   const float jda = par[b * 4 + 2];
   const float dt = par[b * 4 + 3];
-  const int n_last = nb[E - 1];
+  // the lane's sample offset and schedule row (lanes are s-major)
+  const int off = g0 ? g0[b] : 0;
+  const float* phib = phi + (size_t)(b / lanes_per_row) * row_stride;
+  const int* cellb = cell + (size_t)(b / lanes_per_row) * row_stride;
   // Lehmer: sample t of a chunk has state A^(t+1)*seed + S_(t+1), where
   // seed is the previous chunk's last state
   const uint32_t leh_a = leh[t], leh_s = leh[CHUNK + t];
@@ -135,35 +130,16 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   }
 
   for (int c0 = 0; c0 < T; c0 += CHUNK) {
-    const int k = c0 + t;   // 0-based sample; k1 is the reference's 1-based
-    const int k1 = k + 1;
+    const int k = c0 + t;   // 0-based lane sample; k1 the absolute 1-based
 
-    // ---- A: element index = count of end samples below k1 (n is sorted)
-    int lo = 0, hi = E;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (nb[mid] < k1) lo = mid + 1; else hi = mid;
-    }
-    const int jc = min(lo, E - 1);
-    const int jn = min(jc + 1, E - 1);
-    const bool has_next = jc < E - 1;
-    const float* rc = scb + jc * NSCAL;
-    const float* rn = scb + jn * NSCAL;
-    const bool valid = (k1 >= 1) && (k1 <= n_last);
-    const float vm = valid ? 1.f : 0.f;
-    const float k1f = (float)k1;
-    const float alf = fminf(fmaxf((rc[1] - k1f * dt) / rc[2], 0.f), 1.f);
-    const float one_m = 1.f - alf;
-    const bool hs_c = rc[3] > 0.5f;
-    const bool hs_n = (rn[3] > 0.5f) && has_next;
-    const float fr_e = pick(rc[0], rn[0], 0.25f, alf, one_m, valid, hs_c,
-                            hs_n);
-
-    // ---- B: jitter lattices at cells cl and cl + 1
-    const int cl = min(max(cell[k], 0), W - 2);
-    const float ph = phi[k];
-    const float pitch = (lpb[cl] * (1.f - ph) + lpb[cl + 1] * ph) * vm;
-    const float freq_j = fr_e + pitch * jdf;
+    // ---- A-B: sequencer pick and pitch jitter (seq_freq.cuh) ------------
+    const float ph = phib[k];
+    const SeqFreq sq = seq_freq(off + k + 1, nb, scb, E, dt, lpb, W, jdf, ph,
+                                cellb[k]);
+    const int jc = sq.jc, jn = sq.jn, cl = sq.cl;
+    const bool valid = sq.valid, hs_c = sq.hs_c, hs_n = sq.hs_n;
+    const float vm = sq.vm, alf = sq.alf, one_m = sq.one_m;
+    const float freq_j = sq.freq_j;
 
     // ---- C: carrier phase (pre-update) --------------------------------
     float phase;
@@ -304,17 +280,33 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
 
 extern "C" {
 
-// Launches one block per utterance on `stream`; returns cudaGetLastError().
+// Launches one block per lane on `stream`; returns cudaGetLastError().
+// phi/cell hold B / lanes_per_row rows of T samples, row_stride apart (rows
+// may overlap, as the split's segment windows do); g0 may be null (all 0).
 int grail_fused_synth(const int* n, const float* scal, const float* vec,
                       const float* latp, const float* latf, const float* lata,
                       const float* par, const uint32_t* leh, const float* phi,
-                      const int* cell, const float* sf_in, const int* si_in,
-                      float* audio, float* sf_out, int* si_out, int B, int E,
-                      int W, int T, int kcar, void* stream) {
+                      const int* cell, const int* g0, const float* sf_in,
+                      const int* si_in, float* audio, float* sf_out,
+                      int* si_out, int B, int E, int W, int T,
+                      int lanes_per_row, int row_stride, int kcar,
+                      void* stream) {
   fused_synth_kernel<<<B, CHUNK, 0, (cudaStream_t)stream>>>(
-      n, scal, vec, latp, latf, lata, par, leh, phi, cell, sf_in, si_in,
-      audio, sf_out, si_out, E, W, T, kcar);
+      n, scal, vec, latp, latf, lata, par, leh, phi, cell, g0, sf_in, si_in,
+      audio, sf_out, si_out, E, W, T, lanes_per_row, row_stride, kcar);
   return (int)cudaGetLastError();
+}
+
+// *slots = blocks of fused_synth_kernel resident at once on `device`: the
+// occupancy API's blocks per SM times the SM count. Returns a CUDA error.
+int grail_fused_synth_slots(int device, int* slots) {
+  int per_sm = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_synth_kernel, CHUNK, 0);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *slots = per_sm * sms;
+  return (int)e;
 }
 
 int grail_fused_synth_chunk(void) { return CHUNK; }

@@ -13,18 +13,25 @@ reference chain (grail-rs src/lib.rs:813-953 sequencer, :723-805 jitter,
   D. the sequential one-pole lowpass + 8-formant SVF recurrence; the output
      is 0.25 * sum_f (b'_f + b_f), zeroed past the utterance's end.
 
-Two implementations with one signature, (tables, phi, cell, sf, si, T, kcar)
--> (audio [B, T], sf [B, 24], si [B, 3]):
+Two implementations with one signature, (tables, phi, cell, sf, si, T, kcar,
+g0) -> (audio [B, T], sf [B, 24], si [B, 3]):
 
   * `synth_fused_reference` — plain PyTorch: A-C vectorized over [B, T],
     the Q32 carrier as an int64 cumsum, the f32 carrier and D as Python
     loops over samples. Runs on any device; the CPU path and the tests use
     it, and chip_smoke.py holds the kernel against it on the card.
   * `fused_synth_cuda` — the CUDA kernel synth/csrc/fused_synth.cu, one
-    thread block per utterance.
+    thread block per utterance (or per segment of one, on the split).
 
 `synth_fused` runs the one that api.route chose: the kernel for a CUDA
-device, the plain version for the CPU.
+device, the plain version for the CPU. A lane may start at a sample offset
+`g0` and read its own schedule row, which is how the overlap-save split
+(api._synthesize_split) runs S segments of each utterance as S lanes.
+
+The split's seam phases come from the pre-pass `phase_q32_pre_block`: the
+Q32 integral of the same frequency stream (phases A-B, `freq_chain`), from
+the kernel synth/csrc/phase_q32_pre.cu or its plain version
+`phase_q32_pre_reference`.
 
 Carried state: sf rows are lp[8], b[8], c[8]; si holds uint32 bit patterns
 as int32: 0 the Q32 carrier phase, 1 the Lehmer seed, 2 the f32 carrier
@@ -46,13 +53,14 @@ from ..core.rng import (MASK32, lehmer_block_states, lehmer_chunk_tables,
 from .synthesize import SynthState
 
 CHUNK = 128                  # samples per kernel chunk (= threads per block)
+CHUNK_PRE = 1024             # samples per pre-pass chunk sum
 _MIN_LAT_ROWS = 16           # lattices padded to at least this many rows
 _Q32 = 4294967296.0          # 2^32
 _INV_Q32 = 1.0 / 4294967296.0
 
-# kernel launches, counted by fused_synth_cuda where it launches and nowhere
-# else; reset by callers that need to show the main path went through it
-LAUNCHES = {"fused_synth": 0}
+# kernel launches, counted by each wrapper where it launches and nowhere
+# else; reset by callers that need to show the main path went through them
+LAUNCHES = {"fused_synth": 0, "phase_q32_pre": 0}
 
 
 class FusedTables(NamedTuple):
@@ -152,31 +160,65 @@ def f32_carrier(freq: torch.Tensor, p0: torch.Tensor):
     return track, p
 
 
-def synth_fused_reference(tables: FusedTables, phi: torch.Tensor,
-                          cell: torch.Tensor, sf: torch.Tensor,
-                          si: torch.Tensor, T: int, kcar: bool):
-    """Plain PyTorch version of the fused kernel (see the module doc)."""
-    dev = tables.n.device
+class FreqChain(NamedTuple):
+    """Phases A-B of the fused chain, one value per lane and sample
+    ([B, T] each): what the carrier's frequency stream needs, and the
+    intermediates the rest of the chain reuses."""
+
+    jc: torch.Tensor      # int64 current element row
+    jn: torch.Tensor      # int64 next element row
+    valid: torch.Tensor   # bool: 1 <= k1 <= the utterance's last sample
+    vm: torch.Tensor      # valid as f32
+    alf: torch.Tensor     # blend alpha
+    one_m: torch.Tensor   # 1 - alpha
+    hs_c: torch.Tensor    # current element sounds
+    hs_n: torch.Tensor    # next element sounds (and exists)
+    both: torch.Tensor
+    ph: torch.Tensor      # jitter phase phi
+    ic: torch.Tensor      # int64 lattice cell, clamped to [0, W-2]
+    freq_j: torch.Tensor  # jittered carrier frequency (cycles/sample)
+
+
+def _pick(c, nx, sil, a, om, v, hc, hn, bo):
+    """The 4-case pick: the blend of cur and next when both sound, else
+    whichever sounds, else the silent default; silent where not valid."""
+    blend = c * a + nx * om
+    out = torch.where(bo, blend, torch.where(
+        hc, c, torch.where(hn, nx, torch.full_like(c, sil))))
+    return torch.where(v, out, torch.full_like(c, sil))
+
+
+def _lane_rows(x: torch.Tensor, B: int, T: int) -> torch.Tensor:
+    """Schedule [T] or [Ss, >=T] -> one row per lane [B, T]. Lanes are
+    s-major (lane = s * (B // Ss) + b), so lane l reads row l // (B // Ss)."""
+    x = x.reshape(-1, x.shape[-1])[:, :T]
+    Ss = x.shape[0]
+    if B % Ss:
+        raise ValueError(f"{Ss} schedule rows for {B} lanes")
+    return x.expand(B, T) if Ss == 1 else x.repeat_interleave(B // Ss, 0)
+
+
+def freq_chain(tables: FusedTables, k1: torch.Tensor, phi: torch.Tensor,
+               cell: torch.Tensor) -> FreqChain:
+    """Phases A-B for every lane: the sequencer closed form, fr_e, the pitch
+    jitter and freq_j. `k1` is the 1-based absolute sample index per lane
+    (int32 [B, T], offsets applied); (phi, cell) the schedule as
+    `_lane_rows` takes it. The fused plain version and the plain pre-pass
+    both run this one function, as the CUDA kernels share seq_freq.cuh: the
+    split's seams are exact only if both integrate one frequency stream."""
     n = tables.n
     B, E = n.shape
+    T = k1.shape[1]
     W = tables.latp.shape[1]
-    F = NUM_FORMANTS
 
     # ---- A: sequencer closed form ------------------------------------
-    k1 = torch.arange(1, T + 1, dtype=torch.int32, device=dev)
-    j = torch.searchsorted(n, k1.expand(B, T).contiguous())  # count(n < k1)
+    j = torch.searchsorted(n, k1)                              # count(n < k1)
     jc = j.clamp(max=E - 1)
     jn = (jc + 1).clamp(max=E - 1)
     has_next = jc < E - 1
     valid = (k1 >= 1) & (k1 <= n[:, E - 1:E])                 # [B, T]
     vm = valid.to(torch.float32)
-
-    def rows(tab, idx):   # tab [B, E, ...] -> [B, T, ...]
-        flat = tab.reshape(B, E, -1)
-        g = flat.gather(1, idx[..., None].expand(B, T, flat.shape[-1]))
-        return g.reshape((B, T) + tab.shape[2:])
-
-    sc_c, sc_n = rows(tables.scal, jc), rows(tables.scal, jn)
+    sc_c, sc_n = _rows(tables.scal, jc), _rows(tables.scal, jn)
     k1f = k1.to(torch.float32)
     dt = tables.par[:, 3:4]
     alf = ((sc_c[..., 1] - k1f * dt) / sc_c[..., 2]).clamp(0.0, 1.0)
@@ -184,40 +226,71 @@ def synth_fused_reference(tables: FusedTables, phi: torch.Tensor,
     hs_c = sc_c[..., 3] > 0.5
     hs_n = (sc_n[..., 3] > 0.5) & has_next
     both = hs_c & hs_n
+    fr_e = _pick(sc_c[..., 0], sc_n[..., 0], 0.25, alf, one_m, valid,
+                 hs_c, hs_n, both)
 
-    def pick(c, nx, sil, a, om, v, hc, hn, bo):
-        blend = c * a + nx * om
-        out = torch.where(bo, blend, torch.where(
-            hc, c, torch.where(hn, nx, torch.full_like(c, sil))))
-        return torch.where(v, out, torch.full_like(c, sil))
+    # ---- B: pitch jitter from the exact schedule -------------------------
+    ph = _lane_rows(phi, B, T)
+    ic = _lane_rows(cell, B, T).to(torch.int64).clamp(0, W - 2)
+    pitch = (tables.latp.gather(1, ic) * (1.0 - ph)
+             + tables.latp.gather(1, ic + 1) * ph) * vm
+    freq_j = fr_e + pitch * tables.par[:, 0:1]
+    return FreqChain(jc, jn, valid, vm, alf, one_m, hs_c, hs_n, both, ph,
+                     ic, freq_j)
 
-    fr_e = pick(sc_c[..., 0], sc_n[..., 0], 0.25, alf, one_m, valid,
-                hs_c, hs_n, both)
 
-    vc, vn = rows(tables.vec, jc), rows(tables.vec, jn)       # [B, T, 6, 8]
+def _rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """tab [B, R, ...] gathered at rows idx [B, T] -> [B, T, ...]."""
+    B, R = tab.shape[:2]
+    flat = tab.reshape(B, R, -1)
+    g = flat.gather(1, idx[..., None].expand(*idx.shape, flat.shape[-1]))
+    return g.reshape(tuple(idx.shape) + tuple(tab.shape[2:]))
+
+
+def _k1(B: int, T: int, g0: Optional[torch.Tensor], device) -> torch.Tensor:
+    """int32 [B, T]: 1-based absolute sample index g0 + k + 1 per lane."""
+    k1 = torch.arange(1, T + 1, dtype=torch.int32, device=device)
+    if g0 is None:
+        return k1.expand(B, T).contiguous()
+    return (g0.to(torch.int32)[:, None] + k1).contiguous()
+
+
+def synth_fused_reference(tables: FusedTables, phi: torch.Tensor,
+                          cell: torch.Tensor, sf: torch.Tensor,
+                          si: torch.Tensor, T: int, kcar: bool,
+                          g0: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the fused kernel (see the module doc).
+    `g0` (int32 [B] or None for zeros): each lane's sample offset, so lane b
+    renders absolute samples g0[b] + 1 .. g0[b] + T."""
+    dev = tables.n.device
+    B = tables.n.shape[0]
+    F = NUM_FORMANTS
+
+    # ---- A-B: sequencer, pitch jitter, frequency -----------------------
+    fc_ = freq_chain(tables, _k1(B, T, g0, dev), phi, cell)
+    valid, vm, alf, one_m = fc_.valid, fc_.vm, fc_.alf, fc_.one_m
+    freq_j = fc_.freq_j
+
+    vc, vn = _rows(tables.vec, fc_.jc), _rows(tables.vec, fc_.jn)  # [B,T,6,8]
     a3, om3, v3 = alf[..., None], one_m[..., None], valid[..., None]
-    hc3, hn3, bo3 = hs_c[..., None], hs_n[..., None], both[..., None]
-    ff_e, bw_e, sm_e = (pick(vc[:, :, i], vn[:, :, i], 0.25, a3, om3, v3,
-                             hc3, hn3, bo3) for i in range(3))
-    br_e, tb_e = (pick(vc[:, :, i], vn[:, :, i], 0.0, a3, om3, v3,
-                       hc3, hn3, bo3) for i in (3, 4))
+    hc3, hn3 = fc_.hs_c[..., None], fc_.hs_n[..., None]
+    bo3 = fc_.both[..., None]
+    ff_e, bw_e, sm_e = (_pick(vc[:, :, i], vn[:, :, i], 0.25, a3, om3, v3,
+                              hc3, hn3, bo3) for i in range(3))
+    br_e, tb_e = (_pick(vc[:, :, i], vn[:, :, i], 0.0, a3, om3, v3,
+                        hc3, hn3, bo3) for i in (3, 4))
     ac_, an_ = vc[:, :, 5], vn[:, :, 5]
     zero = torch.zeros_like(ac_)
     am_e = torch.where(v3, torch.where(bo3, ac_ * a3 + an_ * om3, torch.where(
         hc3, ac_ * a3, torch.where(hn3, an_ * om3, zero))), zero)
     del vc, vn, ac_, an_, zero            # the largest intermediates
 
-    # ---- B: jitter from the exact shared schedule ----------------------
-    ph = phi[:T]
-    ic = cell[:T].to(torch.int64).clamp(0, W - 2)
-    pitch = (tables.latp[:, ic] * (1.0 - ph)
-             + tables.latp[:, ic + 1] * ph) * vm
-    ph3 = ph[:, None]
-    fc, fnx = tables.latf[:, ic], tables.latf[:, ic + 1]      # [B, T, 8]
+    # ---- B: formant and amplitude jitter -------------------------------
+    ic, ph3 = fc_.ic, fc_.ph[..., None]
+    fc, fnx = _rows(tables.latf, ic), _rows(tables.latf, ic + 1)  # [B,T,8]
     form = fc + (fnx - fc) * ph3
-    acl, anl = tables.lata[:, ic], tables.lata[:, ic + 1]
+    acl, anl = _rows(tables.lata, ic), _rows(tables.lata, ic + 1)
     ampn = acl + (anl - acl) * ph3
-    freq_j = fr_e + pitch * tables.par[:, 0:1]
     jdff_m = (vm * tables.par[:, 1:2])[..., None]
     jda_m = (vm * (0.5 * tables.par[:, 2:3]))[..., None]
     ff_j = ff_e + form * jdff_m
@@ -290,6 +363,18 @@ def synth_fused_reference(tables: FusedTables, phi: torch.Tensor,
     return audio.contiguous(), sf_out, si_out
 
 
+def phase_q32_pre_reference(tables: FusedTables, phi: torch.Tensor,
+                            cell: torch.Tensor, T: int) -> torch.Tensor:
+    """Plain PyTorch version of the pre-pass kernel: per utterance and
+    CHUNK_PRE-sample chunk of samples 1..T, the mod-2^32 sum of
+    trunc(freq_j * 2^32) over the fused chain's own frequency stream.
+    Returns uint32 values held in int64 [B, T // CHUNK_PRE]."""
+    B = tables.n.shape[0]
+    fc_ = freq_chain(tables, _k1(B, T, None, tables.n.device), phi, cell)
+    fq = (fc_.freq_j * _Q32).to(torch.int64)  # exact scale, then truncate
+    return fq.view(B, T // CHUNK_PRE, CHUNK_PRE).sum(-1) & MASK32
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
@@ -319,24 +404,15 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
-                     cell: torch.Tensor, sf: torch.Tensor, si: torch.Tensor,
-                     T: int, kcar: bool):
-    """Launch synth/csrc/fused_synth.cu on the current stream."""
-    import ctypes
-
-    from ._build import load_library
-
-    dev = tables.n.device
+def _check_tables(tables: FusedTables, dev, W_min: int = 2):
+    """Check the tables the kernels read; returns (B, E, W)."""
     if dev.type != "cuda":
-        raise ValueError(f"fused_synth_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"the kernels need CUDA tensors, got {dev}")
     B, E = tables.n.shape
     W = tables.latp.shape[1]
     F = NUM_FORMANTS
-    if T <= 0 or T % CHUNK:
-        raise ValueError(f"T={T} must be a positive multiple of {CHUNK}")
-    if E < 1 or W < 2:
-        raise ValueError(f"need E >= 1 and W >= 2, got E={E}, W={W}")
+    if E < 1 or W < W_min:
+        raise ValueError(f"need E >= 1 and W >= {W_min}, got E={E}, W={W}")
     f32, i32 = torch.float32, torch.int32
     _check("n", tables.n, i32, (B, E), dev)
     _check("scal", tables.scal, f32, (B, E, 4), dev)
@@ -345,10 +421,59 @@ def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
     _check("latf", tables.latf, f32, (B, W, F), dev)
     _check("lata", tables.lata, f32, (B, W, F), dev)
     _check("par", tables.par, f32, (B, 4), dev)
-    _check("phi", phi, f32, (T,), dev)
-    _check("cell", cell, i32, (T,), dev)
-    _check("sf", sf, f32, (B, 3 * F), dev)
+    return B, E, W
+
+
+def _check_sched(phi, cell, T: int, dev):
+    """Check the kernel's schedule: contiguous [T], or [Ss, T] rows with unit
+    sample stride that may overlap (the split's segment windows are strided
+    views of one window). Returns (Ss, row stride in elements)."""
+    if phi.dim() == 1:
+        _check("phi", phi, torch.float32, (T,), dev)
+        _check("cell", cell, torch.int32, (T,), dev)
+        return 1, 0
+    for name, t, dtype in (("phi", phi, torch.float32),
+                           ("cell", cell, torch.int32)):
+        if t.dim() != 2 or t.shape[0] < 1:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"(Ss, {T})")
+        _check(name, t[0], dtype, (T,), dev)
+    if phi.shape != cell.shape or phi.stride() != cell.stride():
+        raise ValueError(f"phi and cell differ in shape or strides: "
+                         f"{tuple(phi.shape)}/{phi.stride()} vs "
+                         f"{tuple(cell.shape)}/{cell.stride()}")
+    return phi.shape[0], phi.stride(0)
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} "
+                           f"({lib.grail_cuda_error_string(rc).decode()})")
+
+
+def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
+                     cell: torch.Tensor, sf: torch.Tensor, si: torch.Tensor,
+                     T: int, kcar: bool, g0: Optional[torch.Tensor] = None):
+    """Launch synth/csrc/fused_synth.cu on the current stream. (phi, cell)
+    is [T] (shared by every lane) or [Ss, T] (one row per group of B // Ss
+    s-major lanes; rows may be overlapping views, see _check_sched); `g0`
+    int32 [B] or None, as in synth_fused_reference."""
+    import ctypes
+
+    from ._build import load_library
+
+    dev = tables.n.device
+    B, E, W = _check_tables(tables, dev)
+    if T <= 0 or T % CHUNK:
+        raise ValueError(f"T={T} must be a positive multiple of {CHUNK}")
+    f32, i32 = torch.float32, torch.int32
+    Ss, row_stride = _check_sched(phi, cell, T, dev)
+    if B % Ss:
+        raise ValueError(f"{Ss} schedule rows for {B} lanes")
+    _check("sf", sf, f32, (B, 3 * NUM_FORMANTS), dev)
     _check("si", si, i32, (B, 3), dev)
+    if g0 is not None:
+        _check("g0", g0, i32, (B,), dev)
 
     lib = load_library()
     leh = _lehmer_table(dev)
@@ -364,51 +489,152 @@ def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
             p(tables.latf.data_ptr()), p(tables.lata.data_ptr()),
             p(tables.par.data_ptr()), p(leh.data_ptr()),
             p(phi.data_ptr()), p(cell.data_ptr()),
+            p(None if g0 is None else g0.data_ptr()),
             p(sf.data_ptr()), p(si.data_ptr()),
             p(audio.data_ptr()), p(sf_out.data_ptr()),
             p(si_out.data_ptr()),
-            B, E, W, T, int(bool(kcar)), p(stream))
+            B, E, W, T, B // Ss, row_stride, int(bool(kcar)), p(stream))
         LAUNCHES["fused_synth"] += 1
-    if rc != 0:
-        raise RuntimeError(f"fused_synth kernel launch failed: CUDA error "
-                           f"{rc} ({lib.grail_cuda_error_string(rc).decode()})")
+    _raise_on(lib, rc, "fused_synth kernel launch")
     return audio, sf_out, si_out
 
 
+def phase_q32_pre_cuda(tables: FusedTables, phi: torch.Tensor,
+                       cell: torch.Tensor, T: int) -> torch.Tensor:
+    """Launch synth/csrc/phase_q32_pre.cu on the current stream: the chunk
+    sums of phase_q32_pre_reference, uint32 values held in int64
+    [B, T // CHUNK_PRE]. (phi, cell) is the schedule of samples 1..T, [T]."""
+    import ctypes
+
+    from ._build import load_library
+
+    dev = tables.n.device
+    B, E, W = _check_tables(tables, dev)
+    if T <= 0 or T % CHUNK_PRE:
+        raise ValueError(f"T={T} must be a positive multiple of {CHUNK_PRE}")
+    if B > 65535:
+        raise ValueError(f"B={B} exceeds the grid's 65,535 utterances")
+    _check("phi", phi, torch.float32, (T,), dev)
+    _check("cell", cell, torch.int32, (T,), dev)
+
+    lib = load_library()
+    sums = torch.empty(B, T // CHUNK_PRE, dtype=torch.int32, device=dev)
+    p = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.grail_phase_q32_pre(
+            p(tables.n.data_ptr()), p(tables.scal.data_ptr()),
+            p(tables.latp.data_ptr()), p(tables.par.data_ptr()),
+            p(phi.data_ptr()), p(cell.data_ptr()), p(sums.data_ptr()),
+            B, E, W, T, p(stream))
+        LAUNCHES["phase_q32_pre"] += 1
+    _raise_on(lib, rc, "phase_q32_pre kernel launch")
+    return _i32_to_u32(sums)
+
+
+_slots_cache = {}
+
+
+def fused_synth_slots(device) -> int:
+    """Thread blocks of the fused kernel the card holds at once: the
+    occupancy API's resident blocks per SM times the SM count, queried from
+    the card on first use and memoized per device."""
+    import ctypes
+
+    from ._build import load_library
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_synth_slots needs a CUDA device, got {dev}")
+    key = str(dev)
+    if key not in _slots_cache:
+        lib = load_library()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.grail_fused_synth_slots(torch.cuda.current_device(),
+                                             ctypes.byref(out))
+        _raise_on(lib, rc, "occupancy query")
+        if out.value < 1:
+            raise RuntimeError("the fused kernel fits no block on this card")
+        _slots_cache[key] = out.value
+    return _slots_cache[key]
+
+
 IMPLEMENTATIONS = {"kernel": fused_synth_cuda, "plain": synth_fused_reference}
+PRE_IMPLEMENTATIONS = {"kernel": phase_q32_pre_cuda,
+                       "plain": phase_q32_pre_reference}
+
+
+def phase_q32_pre_block(tables: FusedTables, sched, T: int, blk: int,
+                        impl: str) -> torch.Tensor:
+    """Q32 carrier-phase accumulator before each `blk`-sample block of
+    samples 1..T: the exclusive prefix sum of trunc(freq_j * 2^32) mod 2^32,
+    uint32 values held in int64 [T // blk, B]. Counterpart of
+    grail_tpu's phase_q32_pre_block: per-CHUNK_PRE chunk sums (the kernel,
+    or its plain version), then the exclusive cumsum over chunks, sampled
+    every blk // CHUNK_PRE. `sched` = (phi [T], cell [T]) for samples 1..T;
+    `impl` is 'kernel' or 'plain', as for synth_fused."""
+    if impl not in PRE_IMPLEMENTATIONS:
+        raise ValueError(f"impl must be one of {sorted(PRE_IMPLEMENTATIONS)}"
+                         f", got {impl!r}")
+    if blk % CHUNK_PRE or T % blk:
+        raise ValueError(f"need blk % {CHUNK_PRE} == 0 and T % blk == 0, "
+                         f"got blk={blk}, T={T}")
+    phi, cell = sched
+    sums = PRE_IMPLEMENTATIONS[impl](tables, phi, cell, T)     # [B, nt]
+    excl = (torch.cumsum(sums, dim=1) - sums) & MASK32
+    return excl[:, ::blk // CHUNK_PRE].T.contiguous()
+
+
+def state_rows(state: SynthState,
+               phase_q32: Optional[torch.Tensor] = None):
+    """SynthState -> the kernels' carried-state rows (sf f32 [B, 24],
+    si int32 [B, 3]; see the module doc). `phase_q32` (uint32 values in
+    int64 [B]) sets the Q32 phase exactly, in place of state.phase."""
+    sf = torch.cat([state.filter_state_a, state.filter_state_b,
+                    state.filter_state_c], dim=1).to(torch.float32)
+    q0 = (torch.remainder(state.phase, 1.0) * _Q32).to(torch.int64) & MASK32
+    if phase_q32 is not None:
+        q0 = phase_q32.to(torch.int64) & MASK32
+    si = torch.stack([_u32_to_i32(q0), _u32_to_i32(state.seed),
+                      state.phase.to(torch.float32).view(torch.int32)],
+                     dim=1)
+    return sf.contiguous(), si.contiguous()
 
 
 def synth_fused(tables: FusedTables, T: int, impl: str,
                 state: Optional[SynthState] = None, sched=None,
-                exact_carrier: bool = False):
+                exact_carrier: bool = False,
+                phase_q32: Optional[torch.Tensor] = None,
+                g0: Optional[torch.Tensor] = None):
     """tables -> (audio [B, T], final SynthState).
 
     `impl` is 'kernel' (fused_synth_cuda, which takes CUDA tensors only) or
     'plain' (synth_fused_reference); api.route chooses it from the device.
-    `sched` = (phi [T], cell [T]): the exact jitter schedule for samples
-    1..T, shared by every utterance (schedule.device_window).
+    `sched` = (phi, cell): the exact jitter schedule, [T] for samples 1..T
+    shared by every utterance (schedule.device_window), or [Ss, T] rows for
+    s-major lane groups (the split's per-segment windows).
     `exact_carrier=True` runs the reference's f32 carrier recurrence from
     `state.phase` instead of the Q32 fixed-point accumulator; the returned
-    phase is then the exact post-update reference phase."""
+    phase is then the exact post-update reference phase.
+    `phase_q32` (uint32 values in int64 [B]) sets each lane's initial Q32
+    phase exactly, in place of state.phase; `g0` (int [B]) offsets each
+    lane's samples (the split's segments)."""
     if sched is None:
         raise ValueError("pass sched=(phi, cell)")
     if impl not in IMPLEMENTATIONS:
         raise ValueError(f"impl must be one of {sorted(IMPLEMENTATIONS)}, "
                          f"got {impl!r}")
     dev = tables.n.device
-    B = tables.n.shape[0]
     F = NUM_FORMANTS
     if state is None:
-        state = SynthState.init(B, dev)
-    sf = torch.cat([state.filter_state_a, state.filter_state_b,
-                    state.filter_state_c], dim=1).to(torch.float32)
-    q0 = (torch.remainder(state.phase, 1.0) * _Q32).to(torch.int64) & MASK32
-    si = torch.stack([_u32_to_i32(q0), _u32_to_i32(state.seed),
-                      state.phase.to(torch.float32).view(torch.int32)],
-                     dim=1)
+        state = SynthState.init(tables.n.shape[0], dev)
+    sf, si = state_rows(state, phase_q32)
+    if g0 is not None:
+        g0 = g0.to(device=dev, dtype=torch.int32).contiguous()
     phi, cell = sched
     audio, sf_o, si_o = IMPLEMENTATIONS[impl](
-        tables, phi, cell, sf.contiguous(), si.contiguous(), T, exact_carrier)
+        tables, phi, cell, sf, si, T, exact_carrier, g0=g0)
     if exact_carrier:
         phase = si_o[:, 2].view(torch.float32)
     else:
@@ -419,6 +645,8 @@ def synth_fused(tables: FusedTables, T: int, impl: str,
                              seed=_i32_to_u32(si_o[:, 1]))
 
 
-__all__ = ["CHUNK", "LAUNCHES", "FusedTables", "build_tables",
-           "q32_carrier", "f32_carrier", "synth_fused_reference",
-           "fused_synth_cuda", "IMPLEMENTATIONS", "synth_fused"]
+__all__ = ["CHUNK", "CHUNK_PRE", "LAUNCHES", "FusedTables", "FreqChain",
+           "build_tables", "freq_chain", "q32_carrier", "f32_carrier",
+           "synth_fused_reference", "fused_synth_cuda", "IMPLEMENTATIONS",
+           "synth_fused", "state_rows", "phase_q32_pre_reference", "phase_q32_pre_cuda",
+           "PRE_IMPLEMENTATIONS", "phase_q32_pre_block", "fused_synth_slots"]

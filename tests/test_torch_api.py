@@ -117,11 +117,16 @@ def test_mixed_voice_language_batch_matches_jax():
 def test_route_table():
     sr = 44100.0
     long_n = int(31 * sr)
-    assert g.route(2, 1000, None, "cpu", sr) == ("plain", "q32")
-    assert g.route(2, long_n, None, "cpu", sr) == ("plain", "kcar")
-    assert g.route(1, long_n, False, "cpu", sr) == ("plain", "q32")
-    assert g.route(64, 1000, True, "cpu", sr) == ("plain", "kcar")
-    assert g.route(64, 1000, "kernel", "cpu", sr) == ("plain", "kcar")
+    long_t = 334 * 4096                         # round_up(long_n, 4096)
+    # (implementation, carrier, S, T): the CPU route is always unsplit
+    assert g.route(2, 1000, None, "cpu", sr) == ("plain", "q32", 1, 4096)
+    assert g.route(2, long_n, None, "cpu", sr) == ("plain", "kcar", 1,
+                                                   long_t)
+    assert g.route(1, long_n, False, "cpu", sr) == ("plain", "q32", 1,
+                                                    long_t)
+    assert g.route(64, 1000, True, "cpu", sr) == ("plain", "kcar", 1, 4096)
+    assert g.route(64, 1000, "kernel", "cpu", sr) == ("plain", "kcar", 1,
+                                                      4096)
     with pytest.raises(ValueError):
         g.route(0, 1000, None, "cpu", sr)
     with pytest.raises(ValueError):

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere. They import
 neither jax nor grail_tpu, so they run on a machine without JAX:
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import grail_tpu_torch as g
+import grail_tpu_torch.api as papi
 from grail_tpu_torch.api import _round_up, _score_num_samples
 from grail_tpu_torch.synth import kernel_fused as kf
 from grail_tpu_torch.synth.jitter import JitterLattice, build_lattice
@@ -92,12 +93,121 @@ def test_wrapper_rejects_bad_inputs(cuda):
 
 
 def test_synthesize_batch_on_cuda_matches_cpu(cuda):
+    # the card's route splits ["ae", "ea"]; the CPU's is unsplit, so the
+    # card is held against the CPU's split at the same S
     from grail_tpu_torch.utils import sample_error_db
 
-    n0 = kf.LAUNCHES["fused_synth"]
+    scores = [g.text_to_score(t) for t in ("ae", "ea")]
+    Ns = [_score_num_samples(s, 44100.0) for s in scores]
+    _, _, S, _ = g.route(2, max(Ns), None, cuda, 44100.0)
+    assert S > 1
+    n0 = dict(kf.LAUNCHES)
     on_card = g.synthesize_batch(["ae", "ea"], device="cuda")
-    assert kf.LAUNCHES["fused_synth"] == n0 + 1
-    on_cpu = g.synthesize_batch(["ae", "ea"], device="cpu")
+    assert kf.LAUNCHES["fused_synth"] == n0["fused_synth"] + 1
+    assert kf.LAUNCHES["phase_q32_pre"] == n0["phase_q32_pre"] + 1
+    on_cpu = papi._synthesize_split(scores, S=S, device="cpu")
     for a, b in zip(on_card, on_cpu):
         assert a.device.type == "cuda" and a.shape == b.shape
         assert sample_error_db(a.cpu().numpy(), b.numpy()) < -100
+
+
+def test_synthesize_batch_exact_carrier_on_cuda_matches_cpu(cuda):
+    # the exact carrier cannot split: the card's route stays unsplit and
+    # launches the fused kernel alone, held against the CPU's same route
+    from grail_tpu_torch.utils import sample_error_db
+
+    Ns = [_score_num_samples(g.text_to_score(t), 44100.0)
+          for t in ("ae", "ea")]
+    assert g.route(2, max(Ns), True, cuda, 44100.0)[1:3] == ("kcar", 1)
+    n0 = dict(kf.LAUNCHES)
+    on_card = g.synthesize_batch(["ae", "ea"], device="cuda",
+                                 exact_carrier=True)
+    assert kf.LAUNCHES["fused_synth"] == n0["fused_synth"] + 1
+    assert kf.LAUNCHES["phase_q32_pre"] == n0["phase_q32_pre"]
+    on_cpu = g.synthesize_batch(["ae", "ea"], device="cpu",
+                                exact_carrier=True)
+    for a, b in zip(on_card, on_cpu):
+        assert a.device.type == "cuda" and a.shape == b.shape
+        assert sample_error_db(a.cpu().numpy(), b.numpy()) < -100
+
+
+def _split_setup(cuda, S, texts=("ae", "ea", "aeae"), seeds=(0, 1, 2)):
+    """Tables and schedules of the split route for `texts` at S segments."""
+    scores = [g.text_to_score(t) for t in texts]
+    b = papi._Batch(scores, "generic", list(seeds))
+    T = _round_up(max(b.Ns), S * papi.BLOCK_SIZE)
+    tables = b.tables(T, cuda)
+    pre, seg = papi._split_sched(b.v0.jitter_frequency, T, S, cuda)
+    return tables, pre, seg, T
+
+
+def test_pre_pass_kernel_equals_plain_bitwise(cuda):
+    tables, pre, _, T = _split_setup(cuda, 4)
+    n0 = kf.LAUNCHES["phase_q32_pre"]
+    k = kf.phase_q32_pre_block(tables, pre, T, papi.BLOCK_SIZE, "kernel")
+    assert kf.LAUNCHES["phase_q32_pre"] == n0 + 1
+    r = kf.phase_q32_pre_block(tables, pre, T, papi.BLOCK_SIZE, "plain")
+    torch.cuda.synchronize()
+    assert k.shape == (T // papi.BLOCK_SIZE, 3)
+    assert torch.equal(k, r)
+
+
+def test_seam_phase_equals_unsplit_kernel_phase(cuda):
+    # the pre-pass's phase at each segment boundary is the Q32 phase that
+    # unsplit kernel 1 holds after that many samples, bit for bit
+    S = 4
+    tables, pre, _, T = _split_setup(cuda, S)
+    q = kf.phase_q32_pre_block(tables, pre, T, papi.BLOCK_SIZE, "kernel")
+    sf = torch.zeros(3, 24, device=cuda)
+    si = torch.zeros(3, 3, dtype=torch.int32, device=cuda)
+    for s in range(1, S):
+        n = s * (T // S) - papi.WARMUP
+        _, _, si_o = kf.fused_synth_cuda(tables, pre[0][:n], pre[1][:n],
+                                         sf, si, n, False)
+        torch.cuda.synchronize()
+        assert torch.equal(si_o[:, 0].to(torch.int64) & 0xFFFFFFFF,
+                           q[n // papi.BLOCK_SIZE])
+
+
+def test_split_kernel_equals_plain_bitwise(cuda):
+    # split lanes: per-lane offsets g0, schedule rows, seam phases, seeds
+    S = 4
+    tables, _, _, T = _split_setup(cuda, S)
+    tables_t, (phi, cell), state, q, g0 = papi._split_lanes(
+        tables, T, S, "kernel", g.get_voice("generic").jitter_frequency)
+    sf, si = kf.state_rows(state, q)
+    args = (tables_t, phi, cell, sf, si, T // S + papi.WARMUP, False)
+    a, sf_k, si_k = kf.fused_synth_cuda(*args, g0=g0)
+    r, sf_r, si_r = kf.synth_fused_reference(*args, g0=g0)
+    torch.cuda.synchronize()
+    assert torch.equal(si_k, si_r)
+    assert torch.equal(sf_k, sf_r)
+    assert torch.equal(a, r)
+
+
+def test_wrapper_rejects_bad_split_inputs(cuda):
+    tables, _, (phi, cell), T = _split_setup(cuda, 2)
+    Text = T // 2 + papi.WARMUP
+    sf = torch.zeros(3, 24, device=cuda)
+    si = torch.zeros(3, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rows"):       # 2 rows, 3 lanes
+        kf.fused_synth_cuda(tables, phi, cell, sf, si, Text, False)
+    t6 = kf.FusedTables(*(x.repeat((2,) + (1,) * (x.dim() - 1))
+                          for x in tables))
+    sf6, si6 = sf.repeat(2, 1), si.repeat(2, 1)
+    with pytest.raises(ValueError, match="strides"):    # a view and a copy
+        kf.fused_synth_cuda(t6, phi, cell.contiguous(), sf6, si6, Text,
+                            False)
+    with pytest.raises(ValueError, match="shape"):      # rows too short
+        kf.fused_synth_cuda(t6, phi[:, :-128], cell[:, :-128], sf6, si6,
+                            Text, False)
+    g0 = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="g0"):
+        kf.fused_synth_cuda(tables, phi[0].contiguous(),
+                            cell[0].contiguous(), sf, si, Text, False, g0=g0)
+
+
+def test_slots_from_the_card(cuda):
+    slots = kf.fused_synth_slots(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert slots % props.multi_processor_count == 0 and slots >= 1
