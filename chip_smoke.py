@@ -9,8 +9,8 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
 
   1. device — needs torch.cuda; prints nvidia-smi's name and power limit.
   2. build — compiles every source under grail_tpu_torch/synth/csrc/: the
-     fused synthesizer (fused_synth.cu) and the split's Q32 seam pre-pass
-     (phase_q32_pre.cu).
+     fused synthesizer (fused_synth.cu), the split's Q32 seam pre-pass
+     (phase_q32_pre.cu) and the core backend's recurrence (synth_core.cu).
   3. kernel vs plain, unsplit — bench.py's 64 texts, voice generic,
      T = 65536, both carrier modes: final integer state bit-equal, audio
      < -100 dB per utterance and max-abs <= 1e-5 against the plain PyTorch
@@ -37,19 +37,37 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
   7. end to end — host stages, synthesize_batch(64 texts) and
      synthesize(2 s text) wall times and aggregate x realtime, each beside
      the card's name and power limit.
+  8. kernel 3 (synth_core.cu, the core backend's recurrence) against its
+     plain version on the core program's own streams at the phase-4 texts,
+     unsplit (64 lanes) and at the core route's split (S*64 lanes): the
+     first 3 blocks of 4096 samples with the state carried, audio and final
+     state bit-equal; its time per block beside one plain run and the
+     bound.
+  9. the core path — synthesize_batch(64 texts, device="cuda",
+     backend="core") must launch synth_core and neither other kernel;
+     outputs finite, of length floor(cum_length[-1] * sr); "ae","ea" held
+     against the CPU's core program at the same S at < -100 dB. Then
+     synthesize() of the 2 s text with backend="core", the same way.
+ 10. the core path's times: kernel 3 per block, and per call as the sum
+     of CUDA-event times around each of its launches in one run of the
+     core program (median of 5 runs), unsplit and at the core route's S;
+     the core program; end to end.
 
-Then one JSON line naming each kernel with its launches (the main path's
-run), error, times and the shape they were taken at (fused_synth: the
-split's, with the unsplit time beside it), and the last line
-{"ok": true, "device": {...}}.
+Then one JSON line naming each kernel with its launches (its path's run),
+error, times, bound and the shape they were taken at (fused_synth: the
+split's, with the unsplit time beside it; synth_core: one launch of the
+core route, with the per-call time and the unsplit launch beside it), and
+the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --scaling
 
 adds, before the JSON lines, the unsplit kernel's time at B = 1 ... 1056
-over the phase-5 T, the exact carrier's at B = 64, both kernels' times over
-the segment count S at B = 64 and at B = 1 (2 s), and the host frontend
-split into text_to_phoneme_elems and score_from_phoneme_elems; it also
-writes them to chiprun_out/chip_smoke_scaling.json.
+over the phase-5 T, the exact carrier's at B = 64, both fused-backend
+kernels' times over the segment count S at B = 64 and at B = 1 (2 s), the
+core program's and kernel 3's times over S at the same two batches, and
+the host frontend split into text_to_phoneme_elems and
+score_from_phoneme_elems; it also writes them to
+chiprun_out/chip_smoke_scaling.json.
 """
 
 import json
@@ -69,11 +87,51 @@ TOL_DB = -100.0
 TOL_ABS = 1e-5
 SPLIT_TOL_DB = -90.0   # split against unsplit: the JAX suite's bound
 SOLO_TEXT = "aea"      # 88,190 samples at 44.1 kHz: a 2 s utterance
+SCALING_S_CORE = {64: (1, 2, 4, 8, 16, 32, 64), 1: (1, 8, 32, 64, 128)}
+CORE_CHECK_BLOCKS = 3  # 4096-sample blocks of kernel 3 held against plain
+
+# the bound of a kernel: the larger of its bytes (each input read once, each
+# output written once) over the memory rate and its operations over the
+# float32 rate outside the tensor cores, one H100 SXM (NVIDIA's data sheet)
+MEM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# operations per lane-sample, counted from the sources (float and integer
+# ops alike, at the float32 rate):
+#  - synth_core.cu: per formant lp 2, b' 5, c' 5, b' + b 1; the 7-add
+#    formant sum and the 0.25 product
+CORE_OPS = 8 * 13 + 8
+#  - seq_freq.cuh: ~18 for alpha, the pick and the pitch jitter, plus 3 per
+#    step of the binary search over the element ends (see search_steps)
+SEQ_OPS = 18
+#  - fused_synth.cu beyond seq_freq: Q32 carrier and its warp scan ~10,
+#    polyBLEP saw ~17, Lehmer noise ~8, jitter scales 3, output 9; per
+#    formant ~75 feed-forward (5 picks, amplitude, jitter, breath, exp and
+#    tan approximations with one division, the seven coefficients) and 13
+#    in the recurrence
+FUSED_OPS = 10 + 17 + 8 + 3 + 9 + 8 * (75 + 13)
+#  - phase_q32_pre.cu beyond seq_freq: the Q32 scale, truncation and add
+PRE_OPS = 3
 
 
 def bench_texts():
     """bench.py's batch: 64 texts of 8-15 characters ("aeae...")."""
     return [("aeae" * 4)[: 8 + (i % 8)] for i in range(B)]
+
+
+def search_steps(E):
+    """Steps of the kernels' binary search over E element ends."""
+    return int(E).bit_length()
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by) of a kernel that must move n_bytes and do ops."""
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def median_ms(fn, reps=REPS):
@@ -337,6 +395,10 @@ def main():
         bad = int((q_k != q_p).sum())
         raise AssertionError(f"[6] phase_q32_pre: {bad} seam phases differ")
     pre_ms = median_ms(lambda: kf.phase_q32_pre_cuda(tables, *pre, T_))
+    pre_bound = bound(
+        nbytes(tables.n, tables.scal, tables.latp, tables.par) + T_ * 8
+        + B * (T_ // kf.CHUNK_PRE) * 4,
+        B * T_ * (SEQ_OPS + 3 * search_steps(tables.n.shape[1]) + PRE_OPS))
     print(f"[6 split] phase_q32_pre B={B} T={T_}: [{T_ // BLOCK_SIZE}, {B}] "
           f"seam phases bit-equal to plain; kernel {pre_ms} ms (median of "
           f"{REPS}), plain PyTorch {pre_plain_ms} ms (one run); card {card}",
@@ -356,6 +418,12 @@ def main():
           f"Q32 state bit for bit", flush=True)
     L, Text = S * B, T_ // S + WARMUP
     sargs = split["args"]
+    tables_t, phi_s, _, sf_s, si_s = sargs[:5]
+    fused_bound = bound(
+        nbytes(*tables_t, sf_s, si_s, split["g0"]) + phi_s.shape[0] * Text * 8
+        + L * Text * 4 + nbytes(sf_s, si_s),
+        L * Text * (SEQ_OPS + 3 * search_steps(tables_t.n.shape[1])
+                    + FUSED_OPS))
     split_ms = median_ms(lambda: kf.fused_synth_cuda(*sargs,
                                                      g0=split["g0"]))
     k_out = kf.fused_synth_cuda(*sargs, g0=split["g0"])
@@ -399,6 +467,89 @@ def main():
           f"{solo_n / sr / (solo_ms / 1e3)} x realtime; card {card}",
           flush=True)
 
+    # ---- 8: kernel 3 (the core backend) against its plain version ------
+    from grail_tpu_torch.synth import kernel as pk
+
+    _, _, S_core, T_core = g.route(B, max(Ns), None, dev, sr, "core")
+    setups = {"unsplit": (B, T, papi._core_unsplit_setup(
+        batch.core_lanes(T, dev), T, sr, inc))}
+    if S_core > 1:
+        setups["split"] = (S_core * B, T_core, papi._core_split_setup(
+            batch.core_lanes(T_core, dev), T_core, S_core, sr, inc))
+    core = {}
+    for label, (L_c, T_c, setup) in setups.items():
+        core[label] = core_check(f"[8] {label}", setup, L_c, T_c, card)
+    core_main = core["split" if S_core > 1 else "unsplit"]
+    del setups
+    torch.cuda.empty_cache()
+
+    # ---- 9: the core backend's main path -------------------------------
+    def core_cpu(text_list, S_):
+        scores_ = [g.text_to_score(t) for t in text_list]
+        if S_ > 1:
+            return papi._synthesize_split(scores_, voice, S=S_, device="cpu",
+                                          backend="core")
+        return g.synthesize_scores(scores_, voice, device="cpu",
+                                   backend="core")
+
+    outs_c, launches_c = drive(
+        "synthesize_batch backend=core",
+        lambda: g.synthesize_batch(texts, device="cuda", backend="core"),
+        {"synth_core"})
+    check_outputs("synthesize_batch backend=core", outs_c, Ns)
+    del outs_c
+    s_short_c = g.route(2, max(papi._Batch([g.text_to_score(t)
+                                            for t in short], voice,
+                                           None).Ns),
+                        None, dev, sr, "core")[2]
+    db_core = against_cpu(
+        "'ae','ea' core",
+        g.synthesize_batch(short, device="cuda", backend="core"),
+        core_cpu(short, s_short_c))
+    print(f"[9 core path] synthesize_batch({B} texts, device='cuda', "
+          f"backend='core'): at most {pk.CORE_MAX_LANES} lanes, "
+          f"S={S_core}, T={T_core}, "
+          f"{core_main['lanes']} lanes of {core_main['nb']} blocks; launches "
+          f"{launches_c}; {B} finite outputs of floor(cum_length[-1]*sr) "
+          f"samples; 'ae','ea' (S={s_short_c}) cuda vs cpu core {db_core} dB",
+          flush=True)
+    _, _, s_solo_c, t_solo_c = g.route(1, solo_n, None, dev, sr, "core")
+    solo_c, solo_launches_c = drive(
+        "synthesize backend=core",
+        lambda: g.synthesize(SOLO_TEXT, device="cuda", backend="core"),
+        {"synth_core"})
+    check_outputs("synthesize backend=core", [solo_c], [solo_n])
+    db_solo_c = against_cpu(f"{SOLO_TEXT!r} core", [solo_c],
+                            core_cpu([SOLO_TEXT], s_solo_c))
+    print(f"[9 core path] synthesize({SOLO_TEXT!r}, device='cuda', "
+          f"backend='core'): S={s_solo_c}, T={t_solo_c}; launches "
+          f"{solo_launches_c}; cuda vs cpu core {db_solo_c} dB", flush=True)
+
+    # ---- 10: the core backend's times ----------------------------------
+    lanes_c = batch.core_lanes(T_core, dev)
+    core_program_ms, core_call_ms, core_calls = time_core_program(
+        core_program(papi, lanes_c, T_core, S_core, sr, inc))
+    lanes_c = batch.core_lanes(T, dev)
+    _, unsplit_call_ms, unsplit_calls = time_core_program(
+        core_program(papi, lanes_c, T, 1, sr, inc))
+    del lanes_c
+    torch.cuda.empty_cache()
+    core_e2e_ms = host_ms(lambda: g.synthesize_batch(
+        texts, device="cuda", backend="core"), sync=True)
+    core_solo_ms = host_ms(lambda: g.synthesize(
+        SOLO_TEXT, device="cuda", backend="core"), sync=True)
+    print(f"[10 core timing] kernel 3 per block ({core_main['lanes']} lanes "
+          f"x {BLOCK_SIZE}) {core_main['ms']} ms (median of {REPS}), per "
+          f"call {core_call_ms} ms (the sum over its {core_calls} launches "
+          f"in one core program run, median of {REPS} runs); unsplit per "
+          f"block ({B} lanes) {core['unsplit']['ms']} ms, per call "
+          f"{unsplit_call_ms} ms ({unsplit_calls} launches); core program "
+          f"(S={S_core}) {core_program_ms} ms; end-to-end synthesize_batch backend='core' "
+          f"{core_e2e_ms} ms for {audio_s:.3f} s of audio, "
+          f"{audio_s / (core_e2e_ms / 1e3)} x realtime; synthesize("
+          f"{SOLO_TEXT!r}, backend='core') {core_solo_ms} ms; card {card}",
+          flush=True)
+
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
 
@@ -409,7 +560,9 @@ def main():
          "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
          "replaces": "grail_tpu/synth/kernel_fused.py:420",
          "launches": launches["fused_synth"], "max_abs_err": max_abs,
-         "ms": split_ms, "plain_ms": split_plain_ms, "shape": [L, Text],
+         "ms": split_ms, "plain_ms": split_plain_ms,
+         "bound_ms": fused_bound[0], "bound_by": fused_bound[1],
+         "library_ms": None, "shape": [L, Text],
          "unsplit_ms": unsplit_ms, "unsplit_plain_ms": unsplit_plain_ms,
          "unsplit_shape": [B, T]},
         {"name": "phase_q32_pre", "route": "cuda",
@@ -417,11 +570,120 @@ def main():
          "replaces": "grail_tpu/synth/kernel_fused.py:1009",
          "launches": launches["phase_q32_pre"],
          "max_abs_err": float((q_k - q_p).abs().max()),
-         "ms": pre_ms, "plain_ms": pre_plain_ms, "shape": [B, T_]}]}),
+         "ms": pre_ms, "plain_ms": pre_plain_ms,
+         "bound_ms": pre_bound[0], "bound_by": pre_bound[1],
+         "library_ms": None, "shape": [B, T_]},
+        {"name": "synth_core", "route": "cuda",
+         "source": "grail_tpu_torch/synth/csrc/synth_core.cu",
+         "replaces": "grail_tpu/synth/kernel.py:85",
+         "launches": launches_c["synth_core"],
+         "max_abs_err": core_main["max_abs"],
+         "ms": core_main["ms"], "plain_ms": core_main["plain_ms"],
+         "bound_ms": core_main["bound"][0],
+         "bound_by": core_main["bound"][1], "library_ms": None,
+         "shape": [BLOCK_SIZE, core_main["lanes"]],
+         "per_call_ms": core_call_ms, "blocks": core_calls,
+         "unsplit_ms": core["unsplit"]["ms"],
+         "unsplit_per_call_ms": unsplit_call_ms,
+         "unsplit_plain_ms": core["unsplit"]["plain_ms"],
+         "unsplit_bound_ms": core["unsplit"]["bound"][0],
+         "unsplit_shape": [BLOCK_SIZE, B]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def core_check(label, setup, lanes, T, card):
+    """Kernel 3 against its plain version on a core program's own streams:
+    the first CORE_CHECK_BLOCKS blocks of `setup`, the state carried from
+    the kernel's output; audio and final state must be bit-equal. Then the
+    kernel's time per block (CUDA events, median of REPS) beside one run of
+    the plain version and the bound. Returns those numbers and the largest
+    absolute difference (0.0 when bit-equal) of audio and state."""
+    import torch
+
+    from grail_tpu_torch.api import BLOCK_SIZE
+    from grail_tpu_torch.synth import kernel as pk
+    from grail_tpu_torch.synth.synthesize import SynthState
+
+    state = setup.state
+    n_check = min(CORE_CHECK_BLOCKS, setup.nb)
+    max_abs = 0.0
+    for i in range(n_check):
+        elems, _ = setup.frames(i)
+        streams, phase, seed = pk.precompute_streams(elems, state)
+        lp, b, c = (x.T.contiguous() for x in state[1:4])
+        k = pk.synth_core_cuda(streams, lp, b, c)
+        r, plain_ms = once_ms(lambda: pk.synth_core_reference(streams, lp, b,
+                                                              c))
+        for name, x, y in zip(("audio", "lp", "b", "c"), k, r):
+            max_abs = max(max_abs, float((x - y).abs().max()))
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"{label} block {i}: kernel 3's {name} differs from the "
+                    f"plain version's (max-abs {float((x - y).abs().max())})")
+        if not bool(torch.isfinite(k[0]).all()):
+            raise AssertionError(f"{label} block {i}: non-finite audio")
+        state = SynthState(phase=phase, filter_state_a=k[1].T,
+                           filter_state_b=k[2].T, filter_state_c=k[3].T,
+                           seed=seed)
+    ms = median_ms(lambda: pk.synth_core_cuda(streams, lp, b, c))
+    bnd = bound(nbytes(*streams, lp, b, c) + BLOCK_SIZE * lanes * 4
+                + nbytes(lp, b, c), BLOCK_SIZE * lanes * CORE_OPS)
+    out = {"lanes": lanes, "nb": setup.nb, "T": T, "ms": ms,
+           "plain_ms": plain_ms, "max_abs": max_abs, "bound": bnd}
+    print(f"{label}: synth_core {lanes} lanes x {BLOCK_SIZE} samples, "
+          f"{n_check} blocks with the state carried: audio and final lp, b, "
+          f"c bit-equal to the plain version; kernel {ms} ms per block "
+          f"(median of {REPS}); plain PyTorch {plain_ms} ms per block (one "
+          f"run); bound "
+          f"{bnd[0]} ms ({bnd[1]}); card {card}", flush=True)
+    return out
+
+
+def core_program(papi, lanes, T, S, sr, inc):
+    """The core program on the card over `lanes` at S segments (S = 1:
+    unsplit), as synthesize_scores runs it; a function of no arguments."""
+    if S > 1:
+        return lambda: papi._core_split_program(lanes, T, S, sr, inc,
+                                                 "kernel")
+    return lambda: papi._core_run(papi._core_unsplit_setup(lanes, T, sr, inc),
+                                  "kernel")
+
+
+def time_core_program(program):
+    """(program ms, kernel 3 ms, kernel 3 launches) of a core program: the
+    medians over REPS runs, after a warm-up, of the CUDA-event time around
+    the whole of program() and of the sum of the CUDA-event times around
+    each call of kernel 3's wrapper in it, and the launches in one run."""
+    import torch
+
+    from grail_tpu_torch.synth import kernel as pk
+
+    wrapper = pk.IMPLEMENTATIONS["kernel"]
+    events = []
+
+    def timed(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = wrapper(*args)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    pk.IMPLEMENTATIONS["kernel"] = timed
+    try:
+        runs = []
+        for _ in range(REPS + 1):
+            events.clear()
+            _, ms = once_ms(program)
+            runs.append((ms, sum(a.elapsed_time(b) for a, b in events)))
+    finally:
+        pk.IMPLEMENTATIONS["kernel"] = wrapper
+    return (statistics.median(r[0] for r in runs[1:]),
+            statistics.median(r[1] for r in runs[1:]), len(events))
 
 
 def split_inputs(papi, kf, batch, T, S, dev):
@@ -450,6 +712,7 @@ def scaling(texts, batch, T, card, zero_state, dev):
     import grail_tpu_torch as g
     import grail_tpu_torch.api as papi
     from grail_tpu_torch.api import BLOCK_SIZE, _round_up
+    from grail_tpu_torch.synth import kernel as pk
     from grail_tpu_torch.synth import kernel_fused as kf
     from grail_tpu_torch.synth.schedule import device_window
     from grail_tpu_torch.synth.score import score_from_phoneme_elems
@@ -501,12 +764,38 @@ def scaling(texts, batch, T, card, zero_state, dev):
                         voice.jitter_frequency))}
                 del sp
             torch.cuda.empty_cache()
+    # the core backend: its program and kernel 3 over S
+    sr, inc = float(voice.sample_rate), voice.jitter_frequency
+    out["core_max_lanes"] = pk.CORE_MAX_LANES
+    out["core_choose_split"], out["core_ms_by_S"] = {}, {}
+    for nb, sub in ((B, batch), (1, solo)):
+        maxN = max(sub.Ns)
+        out["core_choose_split"][nb] = g.route(nb, maxN, None, dev, sr,
+                                               "core")[2:]
+        rows = out["core_ms_by_S"][nb] = {}
+        for S in SCALING_S_CORE[nb]:
+            TS = _round_up(maxN, S * BLOCK_SIZE)
+            lanes = sub.core_lanes(TS, dev)
+            setup = (papi._core_split_setup(lanes, TS, S, sr, inc) if S > 1
+                     else papi._core_unsplit_setup(lanes, TS, sr, inc))
+            streams = pk.precompute_streams(setup.frames(0)[0],
+                                            setup.state)[0]
+            lp, b, c = (x.T.contiguous() for x in setup.state[1:4])
+            blk_ms = median_ms(lambda: pk.synth_core_cuda(streams, lp, b, c))
+            program_ms, call_ms, calls = time_core_program(
+                core_program(papi, lanes, TS, S, sr, inc))
+            rows[S] = {"T": TS, "lanes": S * nb, "blocks": calls,
+                       "synth_core_block_ms": blk_ms,
+                       "synth_core_call_ms": call_ms,
+                       "program_ms": program_ms}
+            del lanes, setup, streams
+            torch.cuda.empty_cache()
     pelems = [g.text_to_phoneme_elems(t) for t in texts]
     out["text_to_phoneme_elems_ms"] = host_ms(
         lambda: [g.text_to_phoneme_elems(t) for t in texts])
     out["score_from_phoneme_elems_ms"] = host_ms(
         lambda: [score_from_phoneme_elems(p, voice) for p in pelems])
-    print(f"[8 scaling] fused_synth unsplit T={T} q32 kernel ms by B "
+    print(f"[11 scaling] fused_synth unsplit T={T} q32 kernel ms by B "
           f"{out['kernel_ms_by_B']}; kcar at B={B} "
           f"{out['kernel_ms_kcar_B64']} ms (CUDA events, median of {REPS}); "
           f"slots {out['slots']}; route's (S, T) {out['choose_split']}; "
@@ -515,6 +804,11 @@ def scaling(texts, batch, T, card, zero_state, dev):
           f"text_to_phoneme_elems {out['text_to_phoneme_elems_ms']} ms, "
           f"score_from_phoneme_elems {out['score_from_phoneme_elems_ms']} "
           f"ms; card {card}", flush=True)
+    print(f"[11 scaling] core backend: at most {out['core_max_lanes']} "
+          f"lanes; route's "
+          f"(S, T) {out['core_choose_split']}; by S (B=64 texts; B=1 "
+          f"{SOLO_TEXT!r}) {json.dumps(out['core_ms_by_S'])}; card {card}",
+          flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_scaling.json"),
               "w") as f:

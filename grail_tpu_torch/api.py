@@ -6,10 +6,21 @@ The reference's chain (examples/cli.rs:175-184)
          .sequence(voice).jitter(seed, voice).synthesize()
 
 runs as a host frontend (text -> timed phoneme elements -> a numpy Score
-per utterance) followed by one fused synthesizer call over the padded batch
-(synth/kernel_fused.py): the CUDA kernels on a GPU, their plain PyTorch
-versions on the CPU. `route` decides the implementation, the carrier and
-the overlap-save split in one place.
+per utterance) followed by one synthesizer program over the padded batch:
+the CUDA kernels on a GPU, their plain PyTorch versions on the CPU. Two
+backends:
+
+  * 'fused' (the default): one fused synthesizer call (synth/
+    kernel_fused.py), the counterpart of grail_tpu's backend "fused";
+  * 'core' ('pallas' is another name for it, so that calls written for
+    grail_tpu run unchanged): the round-1 program of grail_tpu's backend
+    "pallas" — per 4096-sample block, the sequencer (synth/sequencer.py),
+    the jitter (synth/jitter.py) and the DSP core (synth/kernel.py: a
+    PyTorch coefficient prep, then the recurrence kernel), with the state
+    carried from block to block. It has the Q32 carrier only.
+
+`route` decides the implementation, the carrier and the overlap-save split
+in one place.
 
 The split (`_synthesize_split`, the counterpart of grail_tpu's
 _synth_jit_split_fused) runs each utterance's time axis as S segments on S
@@ -17,27 +28,34 @@ kernel lanes, so that a small batch fills the card: each segment re-derives
 its filter state from a WARMUP-sample pre-roll whose output is discarded,
 while the Q32 carrier phase (the pre-pass kernel's exact integral) and the
 Lehmer seed (closed-form skip-ahead) continue exactly. `choose_split` picks
-S from the card's resident-block capacity. On the CPU the route stays
-unsplit; the split is reached there through `_synthesize_split`. Host
+S from the card's resident-block capacity. The core backend splits the
+same way (`_core_split_program`, the counterpart of _synth_jit_split), with
+a plain PyTorch pre-pass that integrates the Q32 phase of expand_frequency's
+stream, and S from the core kernel's own lane capacity. On the CPU the route
+stays unsplit; the split is reached there through `_synthesize_split`. Host
 carrier tracks, streaming and the CLI are later slices; this API has no
 argument for them.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .languages import get_language
 from .core.constants import LEHMER_A
-from .core.rng import lehmer_skip
-from .synth.jitter import JitterLattice, build_lattice
+from .core.rng import MASK32, lehmer_skip
+from .synth.elem import SynthesisElem
+from .synth.jitter import (JitterLattice, apply_jitter, build_lattice,
+                           lattice_to, per_lane, pitch_values, sched_slice)
+from .synth.kernel import CORE_MAX_LANES, synth_core
 from .synth.kernel_fused import (FusedTables, build_tables, fused_synth_slots,
                                  phase_q32_pre_block, synth_fused)
 from .synth.schedule import device_window
-from .synth.synthesize import SynthState
+from .synth.sequencer import expand_frequency, expand_score
+from .synth.synthesize import _INV_Q32, _Q32, SynthState
 from .synth.score import Score, pad_score, score_from_phoneme_elems, stack_scores
 from .text.intonate import intonate
 from .text.language import Language
@@ -56,6 +74,14 @@ EXACT_CARRIER_AUTO_SECONDS = 30.0
 # 'kernel' is kept as another name for True, so that calls written for
 # grail_tpu (whose host-track modes this port does not have) run unchanged
 _EXACT_CARRIER_CHOICES = (None, True, False, "kernel")
+
+# backend names -> the program; 'pallas' is another name for 'core', as
+# grail_tpu calls that program. An unknown name is an error, never a silent
+# fall-through to another program.
+_BACKENDS = {"fused": "fused", "core": "core", "pallas": "core"}
+
+# lane-samples per call of the core split's pre-pass (bounds its memory)
+_PRE_SAMPLES = 1 << 22
 
 
 def _resolve_voice(voice) -> Voice:
@@ -82,6 +108,14 @@ def _resolve_language(language) -> Language:
     return get_language(language) if isinstance(language, str) else language
 
 
+def _check_backend(backend) -> str:
+    """'fused' or 'core' for a backend name; raises ValueError otherwise."""
+    if not isinstance(backend, str) or backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: "
+                         f"{', '.join(_BACKENDS)}")
+    return _BACKENDS[backend]
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -102,10 +136,11 @@ def choose_split(B: int, maxN: int, slots: int):
     """Overlap-save split decision for the card: (segments per utterance S,
     padded length T), with T % (S * BLOCK_SIZE) == 0.
 
-    `slots` is how many blocks of the fused kernel the card holds at once.
-    A block's time grows with its length and the kernel's time is flat in
-    the number of blocks up to `slots` (PERF.md), so the estimated time is
-    waves x samples per lane:
+    `slots` is how many lanes the card runs in one wave: the fused kernel's
+    resident blocks, or the core program's lane capacity
+    (kernel.CORE_MAX_LANES). A lane's time grows with its length and the
+    time is flat in the number of lanes up to `slots` (PERF.md), so the
+    estimated time is waves x samples per lane:
 
         S = 1:  ceil(B / slots) * round_up(maxN, BLOCK_SIZE)
         S > 1:  ceil(S*B / slots) * (T_S / S + WARMUP),
@@ -132,9 +167,10 @@ def choose_split(B: int, maxN: int, slots: int):
 
 
 def route(B: int, maxN: int, exact_carrier, device,
-          sample_rate: float):
+          sample_rate: float, backend: str = "fused"):
     """The one routing decision: (implementation, carrier mode, S, T),
-    which synthesize_scores runs as they are.
+    which synthesize_scores runs as they are, for `backend` 'fused' or
+    'core' ('pallas').
 
     implementation: 'kernel' (the CUDA kernels, device 'cuda') or 'plain'
     (their PyTorch versions, device 'cpu'); a CUDA device without CUDA
@@ -145,14 +181,27 @@ def route(B: int, maxN: int, exact_carrier, device,
     S, T: the overlap-save split and the padded length, from choose_split
     with the card's resident-block capacity on 'cuda'. On 'cpu' (slots = 1)
     and with 'kcar' (the split cannot seed segment-boundary f32 phases)
-    S = 1, T = round_up(maxN, BLOCK_SIZE)."""
+    S = 1, T = round_up(maxN, BLOCK_SIZE).
+
+    The core backend has the Q32 carrier only, as in grail_tpu: with it
+    exact_carrier True or 'kernel' raises ValueError, and None stays Q32 at
+    any length. Its S comes from choose_split with the core program's lane
+    capacity (kernel.CORE_MAX_LANES) on 'cuda'."""
     if B < 1:
         raise ValueError(f"batch size must be >= 1, got {B}")
     if exact_carrier not in _EXACT_CARRIER_CHOICES:
         raise ValueError(f"exact_carrier must be one of "
                          f"{_EXACT_CARRIER_CHOICES}, got {exact_carrier!r}")
+    backend = _check_backend(backend)
     dev = _resolve_device(device)
     impl = "kernel" if dev.type == "cuda" else "plain"
+    if backend == "core":
+        if exact_carrier in (True, "kernel"):
+            raise ValueError(
+                f"exact_carrier={exact_carrier!r} needs the fused backend: "
+                "the core backend has the Q32 carrier only")
+        slots = CORE_MAX_LANES if impl == "kernel" else 1
+        return (impl, "q32") + choose_split(B, maxN, slots)
     if exact_carrier in (True, "kernel") or (
             exact_carrier is None
             and maxN > EXACT_CARRIER_AUTO_SECONDS * float(sample_rate)):
@@ -213,6 +262,18 @@ def _score_num_samples(score: Score, sample_rate: float) -> int:
     return int(np.floor(np.float32(C[-1]) * np.float32(sample_rate)))
 
 
+def _segments(T: int, S: int):
+    """The split's segments: (g0, seed), one int each per segment. Segment
+    s renders absolute samples g0 + 1 .. g0 + T/S + WARMUP, g0 = s*T/S - W;
+    its Lehmer seed skips g0 states ahead, and segment 0's is the negative
+    skip that lands on state 0 at the first real sample."""
+    Ts, W = T // S, WARMUP
+    g0 = [s * Ts - W for s in range(S)]
+    a_inv_w = pow(LEHMER_A, -W, 1 << 32)
+    seed_neg = (-(a_inv_w * lehmer_skip(W)[1])) & 0xFFFFFFFF
+    return g0, [seed_neg] + [lehmer_skip(g)[1] for g in g0[1:]]
+
+
 def _split_lane_setup(tables: FusedTables, T: int, S: int):
     """Overlap-save lane setup: (g0 [S] segment sample offsets, seed [S*B]
     int64 Lehmer seeds, tables tiled to S*B lanes, g0 [S*B] int32).
@@ -224,11 +285,7 @@ def _split_lane_setup(tables: FusedTables, T: int, S: int):
     is the negative skip that lands on state 0 at the first real sample."""
     B = tables.n.shape[0]
     dev = tables.n.device
-    Ts, W = T // S, WARMUP
-    g0 = [s * Ts - W for s in range(S)]
-    a_inv_w = pow(LEHMER_A, -W, 1 << 32)
-    seed_neg = (-(a_inv_w * lehmer_skip(W)[1])) & 0xFFFFFFFF
-    seeds = [seed_neg] + [lehmer_skip(g)[1] for g in g0[1:]]
+    g0, seeds = _segments(T, S)
     seed_lane = torch.tensor(seeds, dtype=torch.int64,
                              device=dev).repeat_interleave(B)
     g0_lane = torch.tensor(g0, dtype=torch.int32,
@@ -270,17 +327,171 @@ def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc):
     return tables_t, seg, state, q_seg.reshape(S * B), g0_lane
 
 
+def _reassemble(full: torch.Tensor, B: int, T: int, S: int) -> torch.Tensor:
+    """The split's lanes [S*B, T/S + W] (s-major) -> audio [B, T]: each
+    lane's first W samples (the pre-roll) dropped, segments in order."""
+    W = WARMUP
+    return full[:, W:].reshape(S, B, T // S).transpose(0, 1).reshape(B, T)
+
+
 def _split_program(tables: FusedTables, T: int, S: int, impl: str,
                    inc) -> torch.Tensor:
     """Overlap-save split over B utterances of T samples: the fused
-    synthesizer over the S*B lanes of `_split_lanes`, each lane's first W
-    samples (the pre-roll) dropped. Returns audio [B, T]."""
-    B = tables.n.shape[0]
-    Ts, W = T // S, WARMUP
+    synthesizer over the S*B lanes of `_split_lanes`, reassembled.
+    Returns audio [B, T]."""
     tables_t, seg, state, q, g0 = _split_lanes(tables, T, S, impl, inc)
-    full, _ = synth_fused(tables_t, Ts + W, impl, state=state, sched=seg,
-                          phase_q32=q, g0=g0)
-    return full[:, W:].reshape(S, B, Ts).transpose(0, 1).reshape(B, T)
+    full, _ = synth_fused(tables_t, T // S + WARMUP, impl, state=state,
+                          sched=seg, phase_q32=q, g0=g0)
+    return _reassemble(full, tables.n.shape[0], T, S)
+
+
+class _CoreLanes(NamedTuple):
+    """The core program's inputs, one row per lane, on one device."""
+
+    score: Score             # [L, E(, 8)] tensors (Score.to)
+    lattice: JitterLattice   # [L, W(, 8)] tensors
+    deltas: tuple            # (jdf, jdff, jda): floats, or f32 tensors [L]
+
+    def tile(self, S: int) -> "_CoreLanes":
+        """S copies of every lane, s-major (lane s*L + l is lane l)."""
+        def t(x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            return x.repeat((S,) + (1,) * (x.dim() - 1))
+
+        sc = self.score
+        return _CoreLanes(
+            Score(SynthesisElem(*map(t, sc.elem)), t(sc.has_sound),
+                  t(sc.length), t(sc.blend_length), t(sc.cum_length)),
+            JitterLattice(*map(t, self.lattice)),
+            tuple(map(t, self.deltas)))
+
+
+def _core_frames(lanes: _CoreLanes, sr: float, blk: int, offset, sched_b,
+                 masked: bool):
+    """One block of the core program's per-sample frames: expand_score at
+    `offset` (one int or one per lane) and apply_jitter with the block's
+    schedule (jitter masked off invalid samples when `masked`, as the split
+    needs), time-major [blk, L(, 8)]; and valid [L, blk]."""
+    elems, valid = expand_score(lanes.score, sr, blk, offset=offset)
+    elems = apply_jitter(elems, lanes.lattice, *lanes.deltas, sched_b,
+                         mask=valid if masked else None)
+    return SynthesisElem(*(f.transpose(0, 1) for f in elems)), valid
+
+
+class _CoreSetup(NamedTuple):
+    """One core program, ready to run: the state before block 0, the block
+    count, and `frames(i)` -> block i's time-major frames and valid [L,
+    BLOCK_SIZE] (_core_frames)."""
+
+    state: SynthState
+    nb: int
+    frames: Callable[[int], tuple]
+
+
+def _core_unsplit_setup(lanes: _CoreLanes, T: int, sr: float,
+                        inc) -> _CoreSetup:
+    """The unsplit core program (the counterpart of grail_tpu's
+    _synth_jit_batch with backend "pallas") over L lanes of T samples: zero
+    state, blocks of BLOCK_SIZE samples at offsets i * BLOCK_SIZE, the
+    schedule of samples 1..T."""
+    L = lanes.score.cum_length.shape[0]
+    dev = lanes.score.cum_length.device
+    nb = max(T // BLOCK_SIZE, 1)
+    blk = T // nb
+    sched = device_window(inc, 0, T, dev)
+
+    def frames(i):
+        off = i * blk
+        return _core_frames(lanes, sr, blk, off,
+                            sched_slice(sched, off, blk), False)
+
+    return _CoreSetup(SynthState.init(L, dev), nb, frames)
+
+
+def _core_pre_pass(lanes: _CoreLanes, T: int, sr: float,
+                   sched) -> torch.Tensor:
+    """The core split's pre-pass: the Q32 carrier phase before each
+    BLOCK_SIZE block of samples 1..T, uint32 values in int64 [T / BLOCK_SIZE,
+    L]. It integrates expand_frequency's stream plus the masked pitch jitter
+    (the frequency the segments synthesize) as trunc(f * 2^32), mod 2^32.
+    `sched` covers samples -WARMUP+1 .. T. Plain PyTorch, as in grail_tpu:
+    the pre-pass kernel of the fused backend integrates the fused chain's
+    frequency, not this one."""
+    L = lanes.score.cum_length.shape[0]
+    blk, W = BLOCK_SIZE, WARMUP
+    jdf = per_lane(lanes.deltas[0], L, 1)
+    nblk = T // blk
+    per = max(1, _PRE_SAMPLES // (L * blk))          # blocks per call
+    sums = []
+    for i0 in range(0, nblk, per):
+        n = min(per, nblk - i0) * blk
+        f, valid = expand_frequency(lanes.score, sr, n, offset=i0 * blk)
+        pitch = pitch_values(lanes.lattice,
+                             *sched_slice(sched, i0 * blk + W, n))
+        f = f + pitch * valid.to(torch.float32) * jdf
+        fq = (f * _Q32).to(torch.int64)      # exact scale, then truncate
+        sums.append(fq.reshape(L, -1, blk).sum(-1))
+    sums = torch.cat(sums, dim=1) & MASK32                   # [L, nblk]
+    return ((torch.cumsum(sums, dim=1) - sums) & MASK32).T
+
+
+def _core_split_setup(lanes: _CoreLanes, T: int, S: int, sr: float,
+                      inc) -> _CoreSetup:
+    """The overlap-save split of the core program (the counterpart of
+    grail_tpu's _synth_jit_split) over B utterances of T samples, T % (S *
+    BLOCK_SIZE) == 0: S*B lanes of T/S + WARMUP samples, lane s*B + b
+    rendering utterance b from sample g0_s + 1 (`_segments`), its jitter
+    masked off invalid samples. Each lane starts from zero filters, its
+    skip-ahead Lehmer seed and the pre-pass's Q32 phase at its first sample,
+    rounded to f32 as grail_tpu rounds it (segment 0: phase 0)."""
+    if S < 2 or T % (S * BLOCK_SIZE):
+        raise ValueError(f"need S >= 2 and T % (S*{BLOCK_SIZE}) == 0, got "
+                         f"S={S}, T={T}")
+    B = lanes.score.cum_length.shape[0]
+    dev = lanes.score.cum_length.device
+    Ts, W, blk = T // S, WARMUP, BLOCK_SIZE
+    sched = device_window(inc, -W, T + W, dev)   # index j <-> sample j-W+1
+    g0, seeds = _segments(T, S)
+    q = _core_pre_pass(lanes, T, sr, sched)                  # [T/blk, B]
+    phase = q[[max(g, 0) // blk for g in g0]].to(torch.float32) * _INV_Q32
+    phase[0] = 0.0
+    state = SynthState.init(S * B, dev)._replace(
+        phase=phase.reshape(S * B),
+        seed=torch.tensor(seeds, dtype=torch.int64,
+                          device=dev).repeat_interleave(B))
+    lanes_t = lanes.tile(S)
+    g0_lane = torch.tensor(g0, dtype=torch.int64,
+                           device=dev).repeat_interleave(B)
+
+    def frames(i):
+        off = i * blk
+        # every window lies inside the schedule: off + g0 + W >= 0 and
+        # off + g0 + W + blk <= (S - 1) * Ts + Ts + W = T + W
+        return _core_frames(lanes_t, sr, blk, off + g0_lane,
+                            sched_slice(sched, off + W + g0_lane, blk), True)
+
+    return _CoreSetup(state, (Ts + W) // blk, frames)
+
+
+def _core_run(setup: _CoreSetup, impl: str) -> torch.Tensor:
+    """Run a core program: per block the frames, then synth_core with the
+    state carried from the block before; zero past each utterance's end.
+    Audio [L, nb * BLOCK_SIZE]."""
+    state, outs = setup.state, []
+    for i in range(setup.nb):
+        elems, valid = setup.frames(i)
+        out, state = synth_core(elems, state, impl)
+        outs.append(out.T * valid)
+    return torch.cat(outs, dim=1)
+
+
+def _core_split_program(lanes: _CoreLanes, T: int, S: int, sr: float, inc,
+                        impl: str) -> torch.Tensor:
+    """The split core program (_core_split_setup) with the pre-rolls'
+    output dropped: audio [B, T]."""
+    full = _core_run(_core_split_setup(lanes, T, S, sr, inc), impl)
+    return _reassemble(full, lanes.score.cum_length.shape[0], T, S)
 
 
 class _Batch:
@@ -303,8 +514,10 @@ class _Batch:
         self.scores = [pad_score(s, E) for s in scores_raw]
         self.Ns = [_score_num_samples(s, sr) for s in self.scores]
 
-    def tables(self, T: int, dev) -> FusedTables:
-        """Lattices for T samples and the kernel tables, on `dev`."""
+    def jitter(self, T: int):
+        """(numpy lattices [B, W(, 8)] for T samples, jparams): jparams =
+        (jitter rate, jdf, jdff, jda), each delta one value, or a list of
+        one per utterance when the voices differ."""
         v0, voices = self.v0, self.voices
         lat_cache = {}
         for sd in self.seeds:
@@ -321,14 +534,39 @@ class _Batch:
             jparams = (v0.jitter_frequency, v0.jitter_delta_frequency,
                        v0.jitter_delta_formant_frequency,
                        v0.jitter_delta_amplitude)
+        return lattices, jparams
+
+    def tables(self, T: int, dev) -> FusedTables:
+        """Lattices for T samples and the kernel tables, on `dev`."""
+        lattices, jparams = self.jitter(T)
         return build_tables(stack_scores(self.scores), lattices, jparams,
                             self.sr, device=dev)
 
-    def run(self, impl: str, carrier: str, S: int, T: int,
-            dev) -> List[torch.Tensor]:
+    def core_lanes(self, T: int, dev) -> _CoreLanes:
+        """The core program's inputs for T samples, on `dev`."""
+        lattices, jparams = self.jitter(T)
+
+        def delta(x):
+            if isinstance(x, list):
+                return torch.tensor(x, dtype=torch.float32, device=dev)
+            return float(np.float32(x))
+
+        return _CoreLanes(stack_scores(self.scores).to(dev),
+                          lattice_to(lattices, dev),
+                          tuple(delta(x) for x in jparams[1:]))
+
+    def run(self, impl: str, carrier: str, S: int, T: int, dev,
+            backend: str = "fused") -> List[torch.Tensor]:
         """Synthesize; one tensor per utterance, sliced to its length."""
-        tables = self.tables(T, dev)
         inc = self.v0.jitter_frequency
+        if backend == "core":
+            lanes = self.core_lanes(T, dev)
+            audio = (_core_split_program(lanes, T, S, self.sr, inc, impl)
+                     if S > 1 else
+                     _core_run(_core_unsplit_setup(lanes, T, self.sr, inc),
+                               impl))
+            return [audio[i, :n] for i, n in enumerate(self.Ns)]
+        tables = self.tables(T, dev)
         if S > 1:
             audio = _split_program(tables, T, S, impl, inc)
         else:
@@ -340,7 +578,7 @@ class _Batch:
 
 def _synthesize_split(scores: Sequence[Score], voice="generic",
                       seeds: Optional[Sequence[int]] = None, S: int = 2,
-                      device="cuda") -> List[torch.Tensor]:
+                      device="cuda", backend="fused") -> List[torch.Tensor]:
     """The overlap-save split route at a given S >= 2 (Q32 carrier), with
     T = round_up(maxN, S * BLOCK_SIZE): what synthesize_scores runs when
     route picks S, reachable here at any S and on the CPU too (the tests
@@ -350,28 +588,32 @@ def _synthesize_split(scores: Sequence[Score], voice="generic",
     if not scores:
         return []
     b = _Batch(scores, voice, seeds)
-    impl = route(b.B, max(b.Ns), False, device, b.sr)[0]
+    impl = route(b.B, max(b.Ns), False, device, b.sr, backend)[0]
     T = _round_up(max(max(b.Ns), 1), S * BLOCK_SIZE)
-    return b.run(impl, "q32", S, T, torch.device(device))
+    return b.run(impl, "q32", S, T, torch.device(device),
+                 _check_backend(backend))
 
 
 def synthesize_scores(scores: Sequence[Score], voice="generic",
                       seeds: Optional[Sequence[int]] = None,
-                      exact_carrier=None,
-                      device="cuda") -> List[torch.Tensor]:
-    """Synthesize prepared per-utterance Scores in one fused call.
+                      exact_carrier=None, device="cuda",
+                      backend="fused") -> List[torch.Tensor]:
+    """Synthesize prepared per-utterance Scores in one synthesizer program.
 
     `voice` is one voice/name or one per score (shared sample rate and
     jitter rate; per-voice jitter deltas run per utterance). Scores pad to a
     shared element count and length; the outputs are float32 tensors on
-    `device`, sliced to each utterance's true length. `exact_carrier` and
-    the overlap-save split: see `route`."""
+    `device`, sliced to each utterance's true length. `backend` is 'fused'
+    (default), 'core' or its other name 'pallas' (see the module doc);
+    `exact_carrier` and the overlap-save split: see `route`."""
     scores = list(scores)
     if not scores:
         return []
     b = _Batch(scores, voice, seeds)
-    impl, carrier, S, T = route(b.B, max(b.Ns), exact_carrier, device, b.sr)
-    return b.run(impl, carrier, S, T, torch.device(device))
+    impl, carrier, S, T = route(b.B, max(b.Ns), exact_carrier, device, b.sr,
+                                backend)
+    return b.run(impl, carrier, S, T, torch.device(device),
+                 _check_backend(backend))
 
 
 def synthesize_batch(texts: Sequence[str], voice="generic",
@@ -379,10 +621,10 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
                      seeds: Optional[Sequence[int]] = None,
                      contour: bool = False, speaking_rate: float = 1.0,
                      sample_rate: Optional[float] = None,
-                     exact_carrier=None,
-                     device="cuda") -> List[torch.Tensor]:
+                     exact_carrier=None, device="cuda",
+                     backend="fused") -> List[torch.Tensor]:
     """Batched synthesis: texts -> one float32 waveform tensor per text, on
-    `device` ('cuda' runs the kernel; 'cpu' its plain PyTorch version).
+    `device` ('cuda' runs the kernels; 'cpu' their plain PyTorch versions).
 
     `voice` and `language` take one value or one per text (mixed voices
     and languages batch freely; voices must share sample rate and jitter
@@ -390,7 +632,9 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
     first (reference resampling, src/lib.rs:418-440). `exact_carrier`:
     None (auto: exact f32 carrier past EXACT_CARRIER_AUTO_SECONDS), True
     (exact f32 carrier in the kernel; 'kernel' is another name for it),
-    False (Q32 carrier)."""
+    False (Q32 carrier). `backend`: 'fused' (default) or 'core' ('pallas'),
+    the round-1 program, which has the Q32 carrier only (exact_carrier
+    True raises; None stays Q32)."""
     if isinstance(texts, str):
         raise TypeError(
             "texts must be a sequence of strings, not a single string — "
@@ -411,24 +655,27 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
         voices = [resampled[id(v)] for v in voices]
     seeds = _seeds(seeds, B)
     _resolve_device(device)    # fail before the host frontend runs
+    _check_backend(backend)
 
     scores = [score_from_phoneme_elems(
         text_to_phoneme_elems(t, v, lng, contour=contour,
                               speaking_rate=speaking_rate), v)
         for t, v, lng in zip(texts, voices, languages_)]
     return synthesize_scores(scores, voices, seeds=seeds,
-                             exact_carrier=exact_carrier, device=device)
+                             exact_carrier=exact_carrier, device=device,
+                             backend=backend)
 
 
 def synthesize(text: str, voice="generic", language="generic", seed: int = 0,
                contour: bool = False, speaking_rate: float = 1.0,
                sample_rate: Optional[float] = None, exact_carrier=None,
-               device="cuda") -> torch.Tensor:
+               device="cuda", backend="fused") -> torch.Tensor:
     """Text -> float32 waveform tensor: synthesize_batch([text])[0]."""
     return synthesize_batch([text], voice, language, seeds=[seed],
                             contour=contour, speaking_rate=speaking_rate,
                             sample_rate=sample_rate,
-                            exact_carrier=exact_carrier, device=device)[0]
+                            exact_carrier=exact_carrier, device=device,
+                            backend=backend)[0]
 
 
 __all__ = ["route", "choose_split", "text_to_phoneme_elems", "text_to_score",

@@ -15,6 +15,7 @@ import torch
 from .synth.elem import SynthesisElem
 from .synth.jitter import JitterLattice
 from .synth.score import Score
+from .synth.synthesize import SynthState
 from .voices.voice import Voice
 
 _VOICE_SCALARS = ("sample_rate", "center_frequency", "jitter_frequency",
@@ -56,6 +57,20 @@ def lattice_from_numpy(pitch, formant, amp) -> JitterLattice:
                          np.asarray(amp, np.float32))
 
 
+def state_from_numpy(phase, filter_state_a, filter_state_b, filter_state_c,
+                     seed, device="cpu") -> SynthState:
+    """A SynthState from its five fields (phase [B], the three filter
+    states [B, 8], the uint32 Lehmer seed [B]); the seed is held as int64."""
+    def f32(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    return SynthState(phase=f32(phase), filter_state_a=f32(filter_state_a),
+                      filter_state_b=f32(filter_state_b),
+                      filter_state_c=f32(filter_state_c),
+                      seed=torch.from_numpy(np.asarray(seed, np.uint32)
+                                            .astype(np.int64)).to(device))
+
+
 def schedule_from_numpy(phi, cell, device="cpu"):
     """(phi f32 [T], cell int32 [T]) tensors, flattening the JAX kernel's
     shared-lane [T, 1] layout."""
@@ -66,4 +81,4 @@ def schedule_from_numpy(phi, cell, device="cpu"):
 
 
 __all__ = ["voice_from_numpy", "score_from_numpy", "lattice_from_numpy",
-           "schedule_from_numpy"]
+           "state_from_numpy", "schedule_from_numpy"]

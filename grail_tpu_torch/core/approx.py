@@ -2,14 +2,26 @@
 
 The reference synthesizer does not use true tan/exp; it uses cheap polynomial
 approximations, and the output waveform depends on their exact shape
-(grail-rs src/lib.rs:60-82). Both functions are elementwise add/mul only and
-keep the JAX package's operation order (grail_tpu/core/approx.py), so a
-tensor evaluated here rounds exactly as the numpy evaluation of the same
-expression does. The CUDA kernel (synth/csrc/fused_synth.cu) writes the same
-expressions out in C++.
+(grail-rs src/lib.rs:60-82). The functions are elementwise add/mul (and
+tan_approx's one division) and keep the JAX package's operation order
+(grail_tpu/core/approx.py), so a tensor evaluated here rounds exactly as the
+numpy evaluation of the same expression does. The CUDA kernel
+(synth/csrc/fused_synth.cu) writes tan_approx_parts and exp_approx out in
+C++.
 """
 
 from __future__ import annotations
+
+
+def tan_approx(x):
+    """Approximation of tan(pi * x), accurate for x in [0, 0.5): the
+    Bhaskara-I form N/D (grail-rs src/lib.rs:60-70), with its division. The
+    SVF gain g = tan(pi * f) of the round-1 core's coefficient prep
+    (synth/synthesize._svf_coeffs). Its denominator differs from
+    tan_approx_parts's D by one product reassociation."""
+    return ((1.0 - x) * x * (5.0 - 4.0 * (x + 0.5) * (0.5 - x))) / (
+        (x + 0.5) * (5.0 - 4.0 * (1.0 - x) * x) * (0.5 - x)
+    )
 
 
 def tan_approx_parts(x):
@@ -32,4 +44,4 @@ def exp_approx(x):
     return o2 * o2 * o
 
 
-__all__ = ["tan_approx_parts", "exp_approx"]
+__all__ = ["tan_approx", "tan_approx_parts", "exp_approx"]

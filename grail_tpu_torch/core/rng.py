@@ -20,6 +20,8 @@ grail_tpu/core/rng.py; the tensor half holds states as int64 in [0, 2^32)
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -128,12 +130,19 @@ def random_f32_from_state(states: torch.Tensor) -> torch.Tensor:
     return (bits.view(torch.float32) - 1.5) * 2.0
 
 
+@functools.lru_cache(maxsize=16)
+def _block_tables(n: int, device: str):
+    """The (A^k, S_k), k = 1..n, tables of lehmer_block_states on `device`,
+    memoized: a block loop uploads them once, not once per block (an upload
+    from pageable memory waits for the device)."""
+    powA, S = lehmer_affine(n)
+    return (torch.from_numpy(powA[1:].astype(np.int64)).to(device),
+            torch.from_numpy(S[1:].astype(np.int64)).to(device))
+
+
 def lehmer_block_states(seed: torch.Tensor, n: int) -> torch.Tensor:
     """[..., n] int64 states after 1..n steps from int64 `seed` [...]."""
-    powA, S = lehmer_affine(n)
-    dev = seed.device
-    pa = torch.from_numpy(powA[1:].astype(np.int64)).to(dev)
-    s = torch.from_numpy(S[1:].astype(np.int64)).to(dev)
+    pa, s = _block_tables(int(n), str(seed.device))
     return (mul32(pa, seed[..., None]) + s) & MASK32
 
 

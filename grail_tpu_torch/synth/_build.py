@@ -9,6 +9,10 @@ and shared headers) and of the flags, so an edit to any of them is rebuilt
 and a stale library is never loaded. The compiler's log (ptxas registers
 and shared memory per kernel) is kept beside the library and read back when
 the library is already built.
+
+It also holds what every kernel wrapper shares: the launch counts
+(`LAUNCHES`), the check of a launch's CUDA error (`raise_on`) and the
+occupancy queries (`resident`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,11 @@ _lock = threading.Lock()
 _lib = None
 build_info = {"seconds": None, "log": "", "path": None}
 
+# launches of the library's kernels, counted by each wrapper where it
+# launches its kernel and nowhere else; callers that must show a path went
+# through the kernels set the counts to 0 before it and read them after
+LAUNCHES = {"fused_synth": 0, "phase_q32_pre": 0, "synth_core": 0}
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
@@ -53,6 +62,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.grail_phase_q32_pre.restype = i
     lib.grail_phase_q32_pre_chunk.argtypes = []
     lib.grail_phase_q32_pre_chunk.restype = i
+    lib.grail_synth_core.argtypes = [p] * 14 + [i] * 2 + [p]
+    lib.grail_synth_core.restype = i
     lib.grail_cuda_error_string.argtypes = [i]
     lib.grail_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,6 +117,40 @@ def build() -> Path:
     build_info.update(seconds=time.perf_counter() - t0, log=log,
                       path=str(out))
     return out
+
+
+def raise_on(lib: ctypes.CDLL, rc: int, what: str):
+    """Raise RuntimeError naming the CUDA error if `rc` is not 0."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} "
+                           f"({lib.grail_cuda_error_string(rc).decode()})")
+
+
+_resident = {}
+
+
+def resident(query: str, device) -> int:
+    """What the library's occupancy query `query` (grail_*_slots) reports
+    for CUDA `device`: how many blocks or lanes of its kernel the card holds
+    at once. Queried on first use and memoized per query and device."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"{query} needs a CUDA device, got {dev}")
+    key = (query, str(dev))
+    if key not in _resident:
+        lib = load_library()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = getattr(lib, query)(torch.cuda.current_device(),
+                                     ctypes.byref(out))
+        raise_on(lib, rc, "occupancy query")
+        if out.value < 1:
+            raise RuntimeError(f"{query}: the kernel fits no block on this "
+                               "card")
+        _resident[key] = out.value
+    return _resident[key]
 
 
 def load_library() -> ctypes.CDLL:

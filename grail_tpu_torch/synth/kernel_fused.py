@@ -50,17 +50,12 @@ from ..core.approx import exp_approx, tan_approx_parts
 from ..core.constants import NUM_FORMANTS
 from ..core.rng import (MASK32, lehmer_block_states, lehmer_chunk_tables,
                         random_f32_from_state)
-from .synthesize import SynthState
+from ._build import LAUNCHES, raise_on, resident
+from .synthesize import _INV_Q32, _Q32, SynthState, q32_carrier
 
 CHUNK = 128                  # samples per kernel chunk (= threads per block)
 CHUNK_PRE = 1024             # samples per pre-pass chunk sum
 _MIN_LAT_ROWS = 16           # lattices padded to at least this many rows
-_Q32 = 4294967296.0          # 2^32
-_INV_Q32 = 1.0 / 4294967296.0
-
-# kernel launches, counted by each wrapper where it launches and nowhere
-# else; reset by callers that need to show the main path went through them
-LAUNCHES = {"fused_synth": 0, "phase_q32_pre": 0}
 
 
 class FusedTables(NamedTuple):
@@ -132,17 +127,6 @@ def _u32_to_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _i32_to_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
-
-
-def q32_carrier(freq: torch.Tensor, p0: torch.Tensor):
-    """Q32 fixed-point carrier phase over the last axis: the exclusive
-    prefix sum of trunc(f * 2^32) from the uint32 phase `p0` (int64 [...]),
-    mod 2^32, as f32 in [0, 1). Returns (phase f32 [..., T], final uint32
-    phase int64 [...]). Same bits as grail_tpu's carrier_phase."""
-    fq = (freq * _Q32).to(torch.int64)         # exact scale, then truncate
-    csum = torch.cumsum(fq, dim=-1)
-    q = (p0[..., None] + csum - fq) & MASK32
-    return q.to(torch.float32) * _INV_Q32, (p0 + csum[..., -1]) & MASK32
 
 
 def f32_carrier(freq: torch.Tensor, p0: torch.Tensor):
@@ -445,12 +429,6 @@ def _check_sched(phi, cell, T: int, dev):
     return phi.shape[0], phi.stride(0)
 
 
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {rc} "
-                           f"({lib.grail_cuda_error_string(rc).decode()})")
-
-
 def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
                      cell: torch.Tensor, sf: torch.Tensor, si: torch.Tensor,
                      T: int, kcar: bool, g0: Optional[torch.Tensor] = None):
@@ -495,7 +473,7 @@ def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
             p(si_out.data_ptr()),
             B, E, W, T, B // Ss, row_stride, int(bool(kcar)), p(stream))
         LAUNCHES["fused_synth"] += 1
-    _raise_on(lib, rc, "fused_synth kernel launch")
+    raise_on(lib, rc, "fused_synth kernel launch")
     return audio, sf_out, si_out
 
 
@@ -528,36 +506,15 @@ def phase_q32_pre_cuda(tables: FusedTables, phi: torch.Tensor,
             p(phi.data_ptr()), p(cell.data_ptr()), p(sums.data_ptr()),
             B, E, W, T, p(stream))
         LAUNCHES["phase_q32_pre"] += 1
-    _raise_on(lib, rc, "phase_q32_pre kernel launch")
+    raise_on(lib, rc, "phase_q32_pre kernel launch")
     return _i32_to_u32(sums)
-
-
-_slots_cache = {}
 
 
 def fused_synth_slots(device) -> int:
     """Thread blocks of the fused kernel the card holds at once: the
     occupancy API's resident blocks per SM times the SM count, queried from
     the card on first use and memoized per device."""
-    import ctypes
-
-    from ._build import load_library
-
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_synth_slots needs a CUDA device, got {dev}")
-    key = str(dev)
-    if key not in _slots_cache:
-        lib = load_library()
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            rc = lib.grail_fused_synth_slots(torch.cuda.current_device(),
-                                             ctypes.byref(out))
-        _raise_on(lib, rc, "occupancy query")
-        if out.value < 1:
-            raise RuntimeError("the fused kernel fits no block on this card")
-        _slots_cache[key] = out.value
-    return _slots_cache[key]
+    return resident("grail_fused_synth_slots", device)
 
 
 IMPLEMENTATIONS = {"kernel": fused_synth_cuda, "plain": synth_fused_reference}

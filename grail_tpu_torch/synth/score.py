@@ -5,7 +5,8 @@ machine. The device path instead takes the whole utterance as a *parameter
 score*: one SynthesisElem table row per timed element plus lengths/blend
 lengths/sound flags, padded with zero-length elements so a batch shares one
 element count. Everything here is numpy on the host (a copy of
-grail_tpu/synth/score.py); synth/kernel_fused.build_tables uploads it once.
+grail_tpu/synth/score.py); synth/kernel_fused.build_tables uploads it once,
+and Score.to moves it to a device whole for the sequencer.
 
 Corresponds to: Selector output stream (reference src/lib.rs:978-1022) and
 SequenceElem (src/lib.rs:813-835).
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 from ..core.constants import NUM_FORMANTS
 from ..text.intonate import PhonemeElem
@@ -47,6 +49,20 @@ class Score(NamedTuple):
     @property
     def num_elems(self):
         return self.length.shape[-1]
+
+    def to(self, device) -> "Score":
+        """Every leaf as a tensor on `device`: has_sound bool, the rest
+        float32 (the sequencer's input, synth/sequencer.py)."""
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        return Score(elem=self.elem.to(device),
+                     has_sound=torch.as_tensor(np.asarray(self.has_sound,
+                                                          bool),
+                                               device=device),
+                     length=f32(self.length),
+                     blend_length=f32(self.blend_length),
+                     cum_length=f32(self.cum_length))
 
 
 def _reference_boundary_samples_np(lengths, sample_rate: float,

@@ -211,3 +211,112 @@ def test_slots_from_the_card(cuda):
     slots = kf.fused_synth_slots(cuda)
     props = torch.cuda.get_device_properties(cuda)
     assert slots % props.multi_processor_count == 0 and slots >= 1
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: the core backend's recurrence (synth/csrc/synth_core.cu)
+# ---------------------------------------------------------------------------
+
+def _core_streams(device, B, T, seed=0):
+    """The prep's seven [T, 8, B] streams from random frames in the
+    synthesizer's ranges, and a random carried state (lp, b, c) [8, B]."""
+    from grail_tpu_torch.synth import kernel as pk
+    from grail_tpu_torch.synth.elem import SynthesisElem
+    from grail_tpu_torch.synth.synthesize import SynthState
+
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, *shape):
+        return (lo + (hi - lo) * rng.random(shape)).astype(np.float32)
+
+    elems = SynthesisElem(u(0.002, 0.006, T, B), u(0.02, 0.07, T, B, 8),
+                          u(0.001, 0.004, T, B, 8), u(0.02, 0.05, T, B, 8),
+                          u(0.0, 0.5, T, B, 8), u(0.0, 0.5, T, B, 8),
+                          u(0.0, 0.3, T, B, 8)).to(device)
+    state = SynthState.init(B, device)._replace(
+        seed=torch.arange(B, dtype=torch.int64, device=device) * 7919)
+    streams = pk.precompute_streams(elems, state)[0]
+    lp, b, c = (torch.from_numpy(rng.standard_normal((8, B)).astype(
+        np.float32) * 1e-3).to(device) for _ in range(3))
+    return streams, lp, b, c
+
+
+@pytest.mark.parametrize("B,T", [(37, 4096), (5, 100)])
+def test_core_kernel_equals_plain_bitwise(cuda, B, T):
+    # odd B leaves a block's last lanes idle; T = 100 ends mid-chunk
+    from grail_tpu_torch.synth import kernel as pk
+
+    streams, lp, b, c = _core_streams(cuda, B, T)
+    n0 = pk.LAUNCHES["synth_core"]
+    k = pk.synth_core_cuda(streams, lp, b, c)
+    assert pk.LAUNCHES["synth_core"] == n0 + 1
+    r = pk.synth_core_reference(streams, lp, b, c)
+    torch.cuda.synchronize()
+    assert k[0].shape == (T, B)
+    for x, y in zip(k, r):
+        assert torch.equal(x, y)
+    assert bool(torch.isfinite(k[0]).all())
+
+
+def test_core_kernel_state_continues(cuda):
+    # two launches with the state carried equal one launch over both halves
+    from grail_tpu_torch.synth import kernel as pk
+
+    streams, lp, b, c = _core_streams(cuda, 19, 4096, seed=1)
+    whole = pk.synth_core_cuda(streams, lp, b, c)
+    first = pk.synth_core_cuda([s[:1500].contiguous() for s in streams],
+                               lp, b, c)
+    second = pk.synth_core_cuda([s[1500:].contiguous() for s in streams],
+                                *first[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([first[0], second[0]]), whole[0])
+    for x, y in zip(second[1:], whole[1:]):
+        assert torch.equal(x, y)
+
+
+def test_core_wrapper_rejects_bad_inputs(cuda):
+    from grail_tpu_torch.synth import kernel as pk
+
+    streams, lp, b, c = _core_streams(cuda, 4, 64)
+    with pytest.raises(ValueError, match="shape"):
+        pk.synth_core_cuda(streams, lp[:, :3], b, c)
+    with pytest.raises(ValueError, match="dtype"):
+        pk.synth_core_cuda([streams[0].double()] + list(streams[1:]), lp, b,
+                           c)
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.synth_core_cuda([s.transpose(0, 2).contiguous().transpose(0, 2)
+                            for s in streams], lp, b, c)
+    with pytest.raises(ValueError, match="device"):
+        pk.synth_core_cuda(streams, lp.cpu(), b, c)
+
+
+def test_core_backend_on_cuda_matches_cpu(cuda):
+    # the card's core route against the CPU's core program at the same S
+    from grail_tpu_torch.synth import kernel as pk
+    from grail_tpu_torch.utils import sample_error_db
+
+    scores = [g.text_to_score(t) for t in ("ae", "ea")]
+    Ns = [_score_num_samples(s, 44100.0) for s in scores]
+    _, carrier, S, _ = g.route(2, max(Ns), None, cuda, 44100.0, "core")
+    assert carrier == "q32"
+    n0 = dict(pk.LAUNCHES)
+    on_card = g.synthesize_batch(["ae", "ea"], device="cuda", backend="core")
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["synth_core"] > n0["synth_core"]
+    assert pk.LAUNCHES["fused_synth"] == n0["fused_synth"]
+    assert pk.LAUNCHES["phase_q32_pre"] == n0["phase_q32_pre"]
+    on_cpu = (papi._synthesize_split(scores, S=S, device="cpu",
+                                     backend="core") if S > 1 else
+              g.synthesize_scores(scores, device="cpu", backend="core"))
+    for a, b in zip(on_card, on_cpu):
+        assert a.device.type == "cuda" and a.shape == b.shape
+        assert sample_error_db(a.cpu().numpy(), b.numpy()) < -100
+
+
+def test_core_route_on_the_card(cuda):
+    # the core backend splits to CORE_MAX_LANES lanes on the card
+    from grail_tpu_torch.synth import kernel as pk
+
+    for B, maxN in ((64, 356_000), (1, 88_190)):
+        assert g.route(B, maxN, None, cuda, 44100.0, "core") == (
+            ("kernel", "q32") + papi.choose_split(B, maxN, pk.CORE_MAX_LANES))
