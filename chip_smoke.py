@@ -52,12 +52,25 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      of CUDA-event times around each of its launches in one run of the
      core program (median of 5 runs), unsplit and at the core route's S;
      the core program; end to end.
+ 11. the serving path (runtime/stream.py, kernel 1's carry mode): the main
+     path StreamPool(512, device="cuda"), voice plain, english, fed
+     staggered texts over 44 ticks with 0.3 s lattice windows, so that
+     every window slides; it must launch fused_synth_carry once per tick
+     and no other kernel, give finite audio, and ticks 20-29 are held bit
+     for bit (audio, sf, si) against the plain version on the card from
+     the same state. Then at N = 128 and 512 (60 s windows, every session
+     fed): a torch.profiler window of 20 steady-state ticks that must see
+     the 20 launches and no host->device copy, and the times: the carry kernel per tick beside
+     the plain version and the bound, _prepare_tick's fast path, full pass
+     and full pass with one feed, read_block, the tick_pipelined period,
+     read_blocks(8), each as a share of the 23.22 ms block budget.
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
 split's, with the unsplit time beside it; synth_core: one launch of the
-core route, with the per-call time and the unsplit launch beside it), and
-the last line {"ok": true, "device": {...}}.
+core route, with the per-call time and the unsplit launch beside it;
+fused_synth_carry: one tick at N = 512, with N = 128 beside it), and the
+last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --scaling
 
@@ -111,6 +124,32 @@ SEQ_OPS = 18
 FUSED_OPS = 10 + 17 + 8 + 3 + 9 + 8 * (75 + 13)
 #  - phase_q32_pre.cu beyond seq_freq: the Q32 scale, truncation and add
 PRE_OPS = 3
+#  - fused_synth.cu's carry mode beyond FUSED_OPS: the jitter step (add,
+#    compare, subtract, cell increment)
+JITTER_OPS = 4
+
+# the serving phase (StreamPool, kernel 1's carry mode): voice plain,
+# language english, 1,024-sample blocks, every session fed text
+SERVE_N = (128, 512)        # timed; the main path runs the last
+SERVE_BLOCK = 1024
+SERVE_TICKS = 44            # main-path ticks
+SERVE_FEED_TICKS = 32       # odd sessions are fed 8 per tick over these
+SERVE_CHECK = range(20, 30)  # main-path ticks held against the plain version
+SLIDE_HORIZON_S = 0.3       # main path: lattice windows of 16 cells, so
+#                             every session's window slides by tick ~29
+PROFILE_TICKS = 20          # steady-state ticks under torch.profiler
+PIPE_TICKS = 50             # tick_pipelined periods timed
+READ_AHEAD = 8              # read_blocks(k)
+SERVE_TEXTS = (              # each opens on a vowel, so it sounds early
+    "all good things come to those who wait",
+    "every call is important to us",
+    "i am here to help you today",
+    "open the door and come in please",
+    "a formant synthesizer speaks in many voices",
+    "our office hours are nine to five",
+    "all lines are busy right now",
+    "each voice can change its pitch",
+)
 
 
 def bench_texts():
@@ -125,6 +164,32 @@ def search_steps(E):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def carry_tick_bytes(ins, si0, si1, blk):
+    """The bytes one carry tick must move, from this run's data: the audio
+    written, the carried rows (sf, si) read and written, offsets, lat_base,
+    par and the Lehmer tables read, and per lane only the lattice rows its
+    cells reach (each cell's row and the next, from the cell in si0 to the
+    one in si1) and the score elements its samples reach (those ending in
+    the tick, plus the one it ends in and the next), with 4 B per step of
+    the search over the element ends."""
+    from grail_tpu_torch.synth import kernel_fused as kf
+
+    n_tab, W = ins["n"], ins["lat"][0].shape[1]
+    N, E = n_tab.shape
+    row_b = sum(x[0, 0].numel() * x.element_size() for x in ins["lat"])
+    elem_b = sum(x[0, 0].numel() * x.element_size()
+                 for x in (n_tab, ins["scal"], ins["vec"]))
+    r0, r1 = ((s[:, 4] - ins["lat_base"]).clamp(0, W - 2)
+              for s in (si0, si1))
+    rows = int((r1 - r0 + 2).sum())
+    off = ins["offsets"]
+    ends = [(n_tab < (off + k)[:, None]).sum(dim=1) for k in (0, blk)]
+    elems = int((ends[1] - ends[0] + 2).clamp(max=E).sum())
+    return (N * blk * 4 + 2 * nbytes(ins["sf"], si0) + nbytes(
+        off, ins["lat_base"], ins["par"], kf._lehmer_table(off.device))
+        + rows * row_b + elems * elem_b + N * 4 * search_steps(E))
 
 
 def bound(n_bytes, ops):
@@ -550,6 +615,10 @@ def main():
           f"{SOLO_TEXT!r}, backend='core') {core_solo_ms} ms; card {card}",
           flush=True)
 
+    # ---- 11: the serving path (kernel 1's carry mode) -------------------
+    serve = serving(card, dev, drive)
+    s512, s128 = (serve["by_n"][n] for n in SERVE_N[::-1])
+
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
 
@@ -587,7 +656,21 @@ def main():
          "unsplit_per_call_ms": unsplit_call_ms,
          "unsplit_plain_ms": core["unsplit"]["plain_ms"],
          "unsplit_bound_ms": core["unsplit"]["bound"][0],
-         "unsplit_shape": [BLOCK_SIZE, B]}]}),
+         "unsplit_shape": [BLOCK_SIZE, B]},
+        {"name": "fused_synth_carry", "route": "cuda",
+         "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
+         "replaces": "grail_tpu/synth/kernel_fused.py:420",
+         "launches": serve["launches"], "max_abs_err": serve["max_abs"],
+         "ms": s512["kernel_ms"], "plain_ms": s512["plain_ms"],
+         "bound_ms": s512["bound_ms"], "bound_by": s512["bound_by"],
+         "library_ms": None, "shape": [SERVE_N[-1], SERVE_BLOCK],
+         "per": "tick", "device_ms": s512["kernel_device_ms"],
+         "n128_ms": s128["kernel_ms"],
+         "n128_device_ms": s128["kernel_device_ms"],
+         "n128_plain_ms": s128["plain_ms"],
+         "n128_bound_ms": s128["bound_ms"],
+         "read_blocks8_kernel_ms": s512["read_blocks8_kernel_ms"],
+         "read_blocks8_host_ms": s512["read_blocks8_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -703,6 +786,222 @@ def split_inputs(papi, kf, batch, T, S, dev):
             "args": (tables_t, phi, cell, sf, si, T // S + WARMUP, False)}
 
 
+def device_us(avg):
+    """Device time (us) of one torch.profiler key_averages() entry."""
+    for name in ("device_time_total", "cuda_time_total"):
+        v = getattr(avg, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def serving(card, dev, drive):
+    """Phase 11: the serving path. The main path is StreamPool(512,
+    device="cuda") fed staggered texts over SERVE_TICKS ticks with the
+    lattice windows sliding; it must launch fused_synth_carry and no other
+    kernel, and SERVE_CHECK of its ticks are held bit for bit against the
+    plain version on the card, from the same state and inputs. Then, at
+    each N in SERVE_N (the default 60 s windows, every session fed), a
+    torch.profiler window of PROFILE_TICKS steady-state ticks (0
+    host->device copies required) and the times. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from grail_tpu_torch.runtime import stream as st
+    from grail_tpu_torch.synth import kernel_fused as kf
+
+    blk = SERVE_BLOCK
+    N = SERVE_N[-1]
+    texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(N)]
+    budget_ms = blk / 44100.0 * 1e3
+    out = {"budget_ms": budget_ms, "by_n": {}}
+
+    # ---- the main path ---------------------------------------------------
+    def main_path():
+        pool = st.StreamPool(N, voice="plain", language="english", block=blk,
+                             jitter_horizon_s=SLIDE_HORIZON_S)
+        for i in range(0, N, 2):
+            pool.feed(i, texts[i])
+        pool.flush()
+        audio, max_abs = [], 0.0
+        for t in range(SERVE_TICKS):
+            if t < SERVE_FEED_TICKS:        # 8 odd sessions join per tick
+                for i in range(2 * t + 1, N, 2 * SERVE_FEED_TICKS):
+                    pool.feed(i, texts[i])
+                    pool.flush(i)
+            if t in SERVE_CHECK:
+                sf0, si0 = pool._sf.clone(), pool._si.clone()
+            a = pool.read_block(sync=False)
+            if t in SERVE_CHECK:
+                # the same tick's inputs (the offsets before their advance)
+                ins = dict(pool._dev, offsets=pool._dev["offsets"] - blk)
+                ref = st._tick("plain", ins, sf0, si0, blk)
+                for name, x, y in zip(("audio", "sf", "si"),
+                                      (a, pool._sf, pool._si), ref):
+                    max_abs = max(max_abs, float(
+                        (x.double() - y.double()).abs().max()))
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            f"[11 serving] tick {t}: the carry kernel's "
+                            f"{name} differs from the plain version's")
+            audio.append(a)
+        return pool, torch.cat(audio, dim=1), max_abs
+
+    (pool, audio, max_abs), counts = drive(
+        "StreamPool serving", main_path, {"fused_synth_carry"})
+    if counts["fused_synth_carry"] != SERVE_TICKS:
+        raise AssertionError(f"[11 serving] {counts['fused_synth_carry']} "
+                             f"carry launches for {SERVE_TICKS} ticks")
+    if not bool(torch.isfinite(audio).all()):
+        raise AssertionError("[11 serving] non-finite audio")
+    peak = audio.abs().amax(dim=1).cpu().numpy()
+    bases = np.asarray([s._lat_base for s in pool.sessions])
+    if (bases > 0).sum() < N // 2 or (peak > 0.01).sum() < N // 4:
+        raise AssertionError(f"[11 serving] slid {(bases > 0).sum()}, "
+                             f"sounding {(peak > 0.01).sum()} of {N}")
+    out.update(launches=counts["fused_synth_carry"], max_abs=max_abs)
+    print(f"[11 serving] main path StreamPool({N}, device='cuda'), voice "
+          f"plain, english, block {blk}, jitter_horizon_s "
+          f"{SLIDE_HORIZON_S}: {SERVE_TICKS} ticks, half the sessions fed "
+          f"up front and 8 more per tick over {SERVE_FEED_TICKS} ticks; "
+          f"launches {counts}; audio finite, {(peak > 0.01).sum()} of {N} "
+          f"sessions sounding; {(bases > 0).sum()} windows slid (lat_base "
+          f"up to {bases.max()}); ticks {SERVE_CHECK.start}-"
+          f"{SERVE_CHECK.stop - 1} bit-equal to the plain version on the "
+          f"card (audio, sf, si; max-abs {max_abs})", flush=True)
+    del pool, audio
+    torch.cuda.empty_cache()
+
+    # ---- steady state and times at each N ----------------------------------
+    for n in SERVE_N:
+        texts_n = texts[:n]
+        pool = st.StreamPool(n, voice="plain", language="english", block=blk)
+        t0 = time.perf_counter()
+        for i in range(n):
+            pool.feed(i, texts_n[i])
+        pool.flush()
+        feed_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        pool.read_block()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(3):
+            pool.read_block()
+
+        # the profiler window: steady-state ticks copy nothing host->device;
+        # the count means something only where the trace saw the launches
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_TICKS):
+                pool.read_block()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        avgs = prof.key_averages()
+        ev = {e.key: e.count for e in avgs}
+        h2d = sum(c for k, c in ev.items() if "HtoD" in k)
+        d2h = sum(c for k, c in ev.items() if "DtoH" in k)
+        kern = sum(c for k, c in ev.items() if "fused_synth_kernel" in k)
+        if kern != PROFILE_TICKS:
+            raise AssertionError(f"[11 serving] N={n}: the profiler saw "
+                                 f"{kern} fused_synth_kernel launches in "
+                                 f"{PROFILE_TICKS} ticks")
+        # device time: the device-side entries (kernels, copies)
+        dev_ms = {e.key: device_us(e) / 1e3 for e in avgs
+                  if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA}
+        kern_dev_ms = sum(v for k_, v in dev_ms.items()
+                          if "fused_synth_kernel" in k_) / kern
+        idle = 1.0 - sum(dev_ms.values()) / window_ms
+        if h2d:
+            raise AssertionError(f"[11 serving] N={n}: {h2d} host->device "
+                                 f"copies in {PROFILE_TICKS} steady-state "
+                                 f"ticks")
+        print(f"[11 serving] N={n} steady state, {PROFILE_TICKS} ticks under "
+              f"torch.profiler: host->device copies {h2d}, device->host "
+              f"{d2h}, fused_synth_kernel launches {kern}; "
+              f"read_block window {window_ms} ms; carry kernel device time "
+              f"{kern_dev_ms} ms per launch; device time by name "
+              f"{json.dumps(dev_ms)}; device idle share {idle}", flush=True)
+
+        # times
+        ins = pool._prepare_tick()
+        sf, si = pool._sf, pool._si
+        kern_ms = median_ms(lambda: st._tick("kernel", ins, sf, si, blk))
+        # the bound's bytes: this tick's own, from its state before and after
+        si1 = st._tick("kernel", ins, sf, si, blk)[2]
+        tick_b = carry_tick_bytes(dict(ins, sf=sf), si, si1, blk)
+        _, plain_ms = once_ms(lambda: st._tick("plain", ins, sf, si, blk))
+        fast_ms = host_ms(pool._prepare_tick)
+
+        def full_pass():
+            pool._quiet = None
+            pool._prepare_tick()
+
+        full_ms = host_ms(full_pass)
+        k = [0]
+
+        def feed_one():                      # a feed: one session's rows
+            k[0] = (k[0] + 1) % n
+            pool.feed(k[0], "a ")
+            pool._prepare_tick()
+
+        scatter_ms = host_ms(feed_one, sync=True)
+        pool.read_block()                    # re-arm the fast path
+        tick_ms = host_ms(pool.read_block)
+        pool.tick_pipelined()
+        periods = []
+        for _ in range(PIPE_TICKS):
+            t0 = time.perf_counter()
+            pool.tick_pipelined()
+            periods.append((time.perf_counter() - t0) * 1e3)
+        pool.drain()
+        pipe_ms = statistics.median(periods)
+        rb_ms = host_ms(lambda: pool.read_blocks(READ_AHEAD))
+        ins8 = pool._prepare_tick(blk * READ_AHEAD)
+        sf, si = pool._sf, pool._si
+        kern8_ms = median_ms(lambda: st._tick("kernel", ins8, sf, si,
+                                              blk * READ_AHEAD))
+        E = ins["n"].shape[1]
+        bnd = bound(tick_b, n * blk * (SEQ_OPS + 3 * search_steps(E)
+                                       + FUSED_OPS + JITTER_OPS))
+        row = dict(
+            E=E, cells=ins["lat"][0].shape[1], feed_ms=feed_ms,
+            first_tick_ms=first_ms, kernel_ms=kern_ms, plain_ms=plain_ms,
+            bound_ms=bnd[0], bound_by=bnd[1], bound_bytes=tick_b,
+            prepare_fast_ms=fast_ms,
+            prepare_full_ms=full_ms, prepare_feed_scatter_ms=scatter_ms,
+            read_block_ms=tick_ms, pipelined_period_ms=pipe_ms,
+            read_blocks8_ms=rb_ms, read_blocks8_kernel_ms=kern8_ms,
+            kernel_device_ms=kern_dev_ms, idle_share=idle,
+            profiler=dict(h2d=h2d, d2h=d2h, kernels=kern,
+                          window_ms=window_ms))
+        out["by_n"][n] = row
+        share = {k_: row[k_] / budget_ms for k_ in (
+            "kernel_ms", "prepare_fast_ms", "prepare_full_ms",
+            "prepare_feed_scatter_ms", "read_block_ms",
+            "pipelined_period_ms")}
+        share8 = {k_: row[k_] / (READ_AHEAD * budget_ms) for k_ in (
+            "read_blocks8_ms", "read_blocks8_kernel_ms")}
+        print(f"[11 serving] N={n} times (block budget {budget_ms} ms): "
+              f"E={E}, window {row['cells']} cells; feeding {n} texts "
+              f"{feed_ms} ms, first tick (all scores built and uploaded) "
+              f"{first_ms} ms; carry kernel {kern_ms} ms per tick (CUDA "
+              f"events, median of {REPS}), plain PyTorch {plain_ms} ms (one "
+              f"run), bound {bnd[0]} ms ({bnd[1]}; the tick's bytes "
+              f"{tick_b}); _prepare_tick fast path "
+              f"{fast_ms} ms, full pass {full_ms} ms, full pass with one "
+              f"session fed (score rows scattered) {scatter_ms} ms; "
+              f"read_block {tick_ms} ms; tick_pipelined period {pipe_ms} ms "
+              f"(median of {PIPE_TICKS}); read_blocks({READ_AHEAD}) "
+              f"{rb_ms} ms, its kernel {kern8_ms} ms; shares of the budget "
+              f"{json.dumps(share)}, of {READ_AHEAD} budgets "
+              f"{json.dumps(share8)}; card {card}", flush=True)
+        del pool, ins, ins8
+        torch.cuda.empty_cache()
+    return out
+
+
 def scaling(texts, batch, T, card, zero_state, dev):
     """Unsplit kernel time against the batch size, the exact carrier's
     cost, both kernels' times against the segment count S, and the host
@@ -795,7 +1094,7 @@ def scaling(texts, batch, T, card, zero_state, dev):
         lambda: [g.text_to_phoneme_elems(t) for t in texts])
     out["score_from_phoneme_elems_ms"] = host_ms(
         lambda: [score_from_phoneme_elems(p, voice) for p in pelems])
-    print(f"[11 scaling] fused_synth unsplit T={T} q32 kernel ms by B "
+    print(f"[12 scaling] fused_synth unsplit T={T} q32 kernel ms by B "
           f"{out['kernel_ms_by_B']}; kcar at B={B} "
           f"{out['kernel_ms_kcar_B64']} ms (CUDA events, median of {REPS}); "
           f"slots {out['slots']}; route's (S, T) {out['choose_split']}; "
@@ -804,7 +1103,7 @@ def scaling(texts, batch, T, card, zero_state, dev):
           f"text_to_phoneme_elems {out['text_to_phoneme_elems_ms']} ms, "
           f"score_from_phoneme_elems {out['score_from_phoneme_elems_ms']} "
           f"ms; card {card}", flush=True)
-    print(f"[11 scaling] core backend: at most {out['core_max_lanes']} "
+    print(f"[12 scaling] core backend: at most {out['core_max_lanes']} "
           f"lanes; route's "
           f"(S, T) {out['core_choose_split']}; by S (B=64 texts; B=1 "
           f"{SOLO_TEXT!r}) {json.dumps(out['core_ms_by_S'])}; card {card}",

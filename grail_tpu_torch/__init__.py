@@ -4,7 +4,9 @@ The port of the JAX package (grail_tpu/) to one NVIDIA H100: the host
 frontend (text, languages, voices, scores, jitter schedule) is numpy, the
 device path is PyTorch, and the per-sample synthesis chain runs in one
 hand-written CUDA kernel (synth/csrc/fused_synth.cu) with a plain PyTorch
-version beside it.
+version beside it. Streaming sessions and the StreamPool server
+(runtime/stream.py) run the same kernel in its carry mode, one launch per
+tick.
 
 Numerics: every per-sample parameter lookup is an index gather (the JAX
 package's one-hot matmuls existed only because TPU gathers are slow), so no
@@ -21,6 +23,7 @@ from .api import (route, synthesize, synthesize_batch, synthesize_scores,
                   text_to_phoneme_elems, text_to_score)
 from .core.constants import DEFAULT_SAMPLE_RATE, NUM_FORMANTS
 from .languages import get_language, language_names, register_language
+from .runtime.stream import StreamPool, StreamSession, ulaw_decode
 from .synth.elem import SynthesisElem
 from .text.intonate import PhonemeElem, intonate
 from .text.language import Language, TranscriptionRule
@@ -37,4 +40,5 @@ __all__ = [
     "PhonemeElem", "intonate", "transcribe", "transcribe_chars",
     "Voice", "VoiceSpec", "PhonemeSpec", "get_voice", "register_voice",
     "voice_names", "get_language", "register_language", "language_names",
+    "StreamSession", "StreamPool", "ulaw_decode",
 ]

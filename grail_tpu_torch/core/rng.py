@@ -85,6 +85,19 @@ def np_lehmer_draws(seed, n: int) -> np.ndarray:
     return np_random_f32_from_state(lehmer_states(seed, n))
 
 
+class NpLehmer:
+    """Stateful sequential reference RNG (the streaming lattice's heads)."""
+
+    def __init__(self, seed: int = 0):
+        self.state = int(seed) & 0xFFFFFFFF
+
+    def next_f32(self) -> np.float32:
+        self.state = (self.state * LEHMER_A + 1) & 0xFFFFFFFF
+        bits = np.uint32((self.state >> 9) | 0x3F800000)
+        f = bits.view(np.float32)
+        return np.float32((f - np.float32(1.5)) * np.float32(2.0))
+
+
 def lehmer_chunk_tables(chunk: int) -> np.ndarray:
     """uint32 [2, chunk] relative skip tables: row 0 is A^(k+1), row 1 is
     S_(k+1), so sample k of a chunk whose previous state is `seed` has state
@@ -148,6 +161,7 @@ def lehmer_block_states(seed: torch.Tensor, n: int) -> torch.Tensor:
 
 __all__ = [
     "lehmer_affine", "lehmer_states", "np_random_f32_from_state",
-    "np_lehmer_draws", "lehmer_chunk_tables", "lehmer_skip", "mul32",
+    "np_lehmer_draws", "NpLehmer", "lehmer_chunk_tables", "lehmer_skip",
+    "mul32",
     "random_f32_from_state", "lehmer_block_states",
 ]

@@ -39,9 +39,11 @@ _lib = None
 build_info = {"seconds": None, "log": "", "path": None}
 
 # launches of the library's kernels, counted by each wrapper where it
-# launches its kernel and nowhere else; callers that must show a path went
+# launches its kernel and nowhere else (fused_synth.cu's carry mode, the
+# serving tick, has a count of its own); callers that must show a path went
 # through the kernels set the counts to 0 before it and read them after
-LAUNCHES = {"fused_synth": 0, "phase_q32_pre": 0, "synth_core": 0}
+LAUNCHES = {"fused_synth": 0, "fused_synth_carry": 0, "phase_q32_pre": 0,
+            "synth_core": 0}
 
 
 def _nvcc() -> str:
@@ -52,7 +54,8 @@ def _nvcc() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.grail_fused_synth.argtypes = [p] * 16 + [i] * 7 + [p]
+    lib.grail_fused_synth.argtypes = ([p] * 17 + [i] * 8 + [ctypes.c_float]
+                                      + [p])
     lib.grail_fused_synth.restype = i
     lib.grail_fused_synth_chunk.argtypes = []
     lib.grail_fused_synth_chunk.restype = i

@@ -2,7 +2,8 @@
 //
 // Replaces grail_tpu/synth/kernel_fused.py::_fused_kernel (the Pallas TPU
 // kernel behind synth_fused_pallas) in its 'host' mode, with the Q32
-// fixed-point carrier or the in-kernel exact f32 carrier (kcar). Per sample
+// fixed-point carrier or the in-kernel exact f32 carrier (kcar), and in its
+// 'carry' mode (jcarry: the serving tick of runtime/stream.py). Per sample
 // it runs the whole reference chain: element index by boundary count, the
 // cur/next rows, blend alpha and the 4-case pick; value-noise jitter from
 // the shared exact (phi, cell) schedule; the carrier phase; polyBLEP saw;
@@ -11,6 +12,19 @@
 // lane may start at a sample offset g0 and read its own row of the
 // schedule: the overlap-save split runs S time segments of each utterance
 // as S lanes (s-major), seeded with exact phases by phase_q32_pre.cu.
+//
+// In 'carry' mode no schedule is read: each lane carries its jitter phase
+// and absolute lattice cell in si columns 3-4, and per chunk one thread
+// steps the reference recurrence (phase = f32(phase + inc); if phase > 1:
+// phase -= 1, cell += 1) into shared memory, as the kcar loop steps the
+// carrier. The lane's lattice is a sliding window whose row 0 is the
+// absolute cell lat_base[b], so the cell read is cell - lat_base[b],
+// clamped to the window like the host mode's. A serving tick then uploads
+// nothing: scores, lattices, offsets and state stay on the card. A tick is
+// short (1,024 samples: 8 chunks) and one wave for up to the card's
+// resident blocks, so its time is the launch plus 8 chunk latencies,
+// whatever the number of sessions; the carry loop adds one more short
+// sequential run per chunk to that latency.
 //
 // What bounds it on this card: not bytes and not FLOPs. Inputs are a few
 // KB of tables per utterance plus an 8 B/sample schedule shared by all
@@ -84,10 +98,12 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
                    const float* __restrict__ phi,
                    const int* __restrict__ cell,
                    const int* __restrict__ g0,
+                   const int* __restrict__ lat_base,
                    const float* __restrict__ sf_in,
                    const int* __restrict__ si_in, float* __restrict__ audio,
                    float* __restrict__ sf_out, int* __restrict__ si_out, int E,
-                   int W, int T, int lanes_per_row, int row_stride, int kcar) {
+                   int W, int T, int lanes_per_row, int row_stride, int kcar,
+                   int jcarry, float inc) {
   __shared__ float s_alpha[CHUNK][NF];   // after D: the output terms b' + b
   __shared__ float s_d[CHUNK][NF];
   __shared__ float s_q1[CHUNK][NF];
@@ -96,6 +112,8 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   __shared__ float s_m21[CHUNK][NF];
   __shared__ float s_m22[CHUNK][NF];
   __shared__ float s_car[CHUNK];         // kcar: frequency in, phase out
+  __shared__ float s_jphi[CHUNK];        // jcarry: the chunk's jitter phase
+  __shared__ int s_jcell[CHUNK];         // jcarry: and absolute cell
   __shared__ uint32_t s_warp[CHUNK / 32];
 
   const int b = blockIdx.x;
@@ -110,8 +128,10 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   const float jdff = par[b * 4 + 1];
   const float jda = par[b * 4 + 2];
   const float dt = par[b * 4 + 3];
-  // the lane's sample offset and schedule row (lanes are s-major)
+  // the lane's sample offset and schedule row (lanes are s-major); carry
+  // mode reads no schedule
   const int off = g0 ? g0[b] : 0;
+  const int lb = lat_base ? lat_base[b] : 0;
   const float* phib = phi + (size_t)(b / lanes_per_row) * row_stride;
   const int* cellb = cell + (size_t)(b / lanes_per_row) * row_stride;
   // Lehmer: sample t of a chunk has state A^(t+1)*seed + S_(t+1), where
@@ -119,9 +139,13 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   const uint32_t leh_a = leh[t], leh_s = leh[CHUNK + t];
   const uint32_t leh_a_end = leh[CHUNK - 1], leh_s_end = leh[2 * CHUNK - 1];
 
-  uint32_t q32 = (uint32_t)si_in[b * 3 + 0];
-  uint32_t seed = (uint32_t)si_in[b * 3 + 1];
-  float kphase = __int_as_float(si_in[b * 3 + 2]);
+  const int si_cols = jcarry ? 5 : 3;   // carry mode: + jitter phase, cell
+  const int* sib = si_in + (size_t)b * si_cols;
+  uint32_t q32 = (uint32_t)sib[0];
+  uint32_t seed = (uint32_t)sib[1];
+  float kphase = __int_as_float(sib[2]);
+  float jphi = jcarry ? __int_as_float(sib[3]) : 0.f;
+  int jcell = jcarry ? sib[4] : 0;
   float lp = 0.f, bs = 0.f, cs = 0.f;
   if (t < NF) {
     lp = sf_in[b * 3 * NF + t];
@@ -132,10 +156,36 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   for (int c0 = 0; c0 < T; c0 += CHUNK) {
     const int k = c0 + t;   // 0-based lane sample; k1 the absolute 1-based
 
+    // ---- the jitter schedule: read, or stepped from the carried state --
+    float ph;
+    int cl_in;
+    if (jcarry) {
+      if (t == 0) {
+        float p = jphi;
+        int c = jcell;
+        for (int i = 0; i < CHUNK; ++i) {
+          p = p + inc;
+          if (p > 1.f) {
+            p = p - 1.f;
+            c += 1;
+          }
+          s_jphi[i] = p;
+          s_jcell[i] = c;
+        }
+        jphi = p;
+        jcell = c;
+      }
+      __syncthreads();
+      ph = s_jphi[t];
+      cl_in = s_jcell[t] - lb;   // the window's row; seq_freq clamps it
+    } else {
+      ph = phib[k];
+      cl_in = cellb[k];
+    }
+
     // ---- A-B: sequencer pick and pitch jitter (seq_freq.cuh) ------------
-    const float ph = phib[k];
     const SeqFreq sq = seq_freq(off + k + 1, nb, scb, E, dt, lpb, W, jdf, ph,
-                                cellb[k]);
+                                cl_in);
     const int jc = sq.jc, jn = sq.jn, cl = sq.cl;
     const bool valid = sq.valid, hs_c = sq.hs_c, hs_n = sq.hs_n;
     const float vm = sq.vm, alf = sq.alf, one_m = sq.one_m;
@@ -272,9 +322,14 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
     sf_out[b * 3 * NF + 2 * NF + t] = cs;
   }
   if (t == 0) {
-    si_out[b * 3 + 0] = kcar ? si_in[b * 3 + 0] : (int)q32;
-    si_out[b * 3 + 1] = (int)seed;
-    si_out[b * 3 + 2] = kcar ? __float_as_int(kphase) : si_in[b * 3 + 2];
+    int* sob = si_out + (size_t)b * si_cols;
+    sob[0] = kcar ? sib[0] : (int)q32;
+    sob[1] = (int)seed;
+    sob[2] = kcar ? __float_as_int(kphase) : sib[2];
+    if (jcarry) {
+      sob[3] = __float_as_int(jphi);
+      sob[4] = jcell;
+    }
   }
 }
 
@@ -283,17 +338,20 @@ extern "C" {
 // Launches one block per lane on `stream`; returns cudaGetLastError().
 // phi/cell hold B / lanes_per_row rows of T samples, row_stride apart (rows
 // may overlap, as the split's segment windows do); g0 may be null (all 0).
+// jcarry = 1: the carry mode; phi/cell are not read, si has 5 columns (3
+// otherwise), inc is the jitter rate and lat_base may be null (all 0).
 int grail_fused_synth(const int* n, const float* scal, const float* vec,
                       const float* latp, const float* latf, const float* lata,
                       const float* par, const uint32_t* leh, const float* phi,
-                      const int* cell, const int* g0, const float* sf_in,
-                      const int* si_in, float* audio, float* sf_out,
-                      int* si_out, int B, int E, int W, int T,
-                      int lanes_per_row, int row_stride, int kcar,
-                      void* stream) {
+                      const int* cell, const int* g0, const int* lat_base,
+                      const float* sf_in, const int* si_in, float* audio,
+                      float* sf_out, int* si_out, int B, int E, int W, int T,
+                      int lanes_per_row, int row_stride, int kcar, int jcarry,
+                      float inc, void* stream) {
   fused_synth_kernel<<<B, CHUNK, 0, (cudaStream_t)stream>>>(
-      n, scal, vec, latp, latf, lata, par, leh, phi, cell, g0, sf_in, si_in,
-      audio, sf_out, si_out, E, W, T, lanes_per_row, row_stride, kcar);
+      n, scal, vec, latp, latf, lata, par, leh, phi, cell, g0, lat_base,
+      sf_in, si_in, audio, sf_out, si_out, E, W, T, lanes_per_row, row_stride,
+      kcar, jcarry, inc);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,18 @@ reference chain (grail-rs src/lib.rs:813-953 sequencer, :723-805 jitter,
   D. the sequential one-pole lowpass + 8-formant SVF recurrence; the output
      is 0.25 * sum_f (b'_f + b_f), zeroed past the utterance's end.
 
+The jitter schedule (phi, cell) comes in one of two modes, as in the JAX
+kernel: 'host', a schedule computed on the host (synth/schedule.py) and
+shared by the lanes or given per lane group; or 'carry' (the serving tick,
+runtime/stream.py), where each lane steps the reference recurrence itself
+from a carried (phase, absolute cell) in si, so that a tick uploads no
+schedule. In 'carry' mode a lane's lattice holds a sliding window whose row
+0 is the absolute cell `lat_base`; cells read rows `cell - lat_base`,
+clamped to the window as the host mode's cells are.
+
 Two implementations with one signature, (tables, phi, cell, sf, si, T, kcar,
-g0) -> (audio [B, T], sf [B, 24], si [B, 3]):
+g0, lat_base, inc) -> (audio [B, T], sf [B, 24], si [B, 3 or 5]); phi and
+cell are None in 'carry' mode:
 
   * `synth_fused_reference` — plain PyTorch: A-C vectorized over [B, T],
     the Q32 carrier as an int64 cumsum, the f32 carrier and D as Python
@@ -35,7 +45,8 @@ the kernel synth/csrc/phase_q32_pre.cu or its plain version
 
 Carried state: sf rows are lp[8], b[8], c[8]; si holds uint32 bit patterns
 as int32: 0 the Q32 carrier phase, 1 the Lehmer seed, 2 the f32 carrier
-phase (exact mode). Audio is utterance-major [B, T] (the JAX kernel's is
+phase (exact mode), and in 'carry' mode 3 the f32 jitter phase and 4 the
+absolute jitter cell. Audio is utterance-major [B, T] (the JAX kernel's is
 [T, B]).
 """
 
@@ -79,7 +90,20 @@ def build_tables(score, lattice, jparams, sample_rate,
 
     `jparams` = (jitter rate, jdf, jdff, jda); each delta is a scalar or one
     per utterance (multi-voice batches). The rate itself is not read here:
-    the schedule (phi, cell) carries it."""
+    the schedule (phi, cell), or the carry mode's `inc`, carries it."""
+    n, scal, vec, par = score_tables(score, jparams, sample_rate)
+    latp, latf, lata = lattice_tables(lattice)
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return FusedTables(n=up(n), scal=up(scal), vec=up(vec), latp=up(latp),
+                       latf=up(latf), lata=up(lata), par=up(par))
+
+
+def score_tables(score, jparams, sample_rate):
+    """The score's tables of build_tables, as numpy arrays: (n [B, E],
+    scal [B, E, 4], vec [B, E, 6, 8], par [B, 4])."""
     _, jdf, jdff, jda = jparams
     sr = np.float32(sample_rate)
     C = np.asarray(score.cum_length, np.float32)             # [B, E]
@@ -98,26 +122,26 @@ def build_tables(score, lattice, jparams, sample_rate,
         el.formant_breath, el.formant_turb, el.formant_amp)],
         axis=-2)                                               # [B, E, 6, 8]
 
-    def edge_pad(x):  # [B, W, ...] -> [B, max(W, 16), ...] repeating row W-1
+    def row(x):
+        return np.broadcast_to(np.asarray(x, np.float32), (B,))
+
+    dt = np.float32(1.0) / sr
+    par = np.stack([row(jdf), row(jdff), row(jda), row(dt)], axis=-1)
+    return n, scal, vec, par
+
+
+def lattice_tables(lattice):
+    """The lattices of build_tables, as numpy arrays (latp [B, W'], latf and
+    lata [B, W', 8]), W' = max(W, 16): short lattices repeat their last
+    row."""
+    def edge_pad(x):
         x = np.asarray(x, np.float32)
         k = _MIN_LAT_ROWS - x.shape[1]
         if k > 0:
             x = np.concatenate([x, np.repeat(x[:, -1:], k, axis=1)], axis=1)
         return x
 
-    def row(x):
-        return np.broadcast_to(np.asarray(x, np.float32), (B,))
-
-    dt = np.float32(1.0) / sr
-    par = np.stack([row(jdf), row(jdff), row(jda), row(dt)], axis=-1)
-
-    def up(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    return FusedTables(n=up(n), scal=up(scal), vec=up(vec),
-                       latp=up(edge_pad(lattice.pitch)),
-                       latf=up(edge_pad(lattice.formant)),
-                       lata=up(edge_pad(lattice.amp)), par=up(par))
+    return tuple(edge_pad(x) for x in lattice)
 
 
 def _u32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -239,16 +263,51 @@ def _k1(B: int, T: int, g0: Optional[torch.Tensor], device) -> torch.Tensor:
     return (g0.to(torch.int32)[:, None] + k1).contiguous()
 
 
-def synth_fused_reference(tables: FusedTables, phi: torch.Tensor,
-                          cell: torch.Tensor, sf: torch.Tensor,
+def jitter_carry(jphi: torch.Tensor, jcell: torch.Tensor, inc, T: int):
+    """T steps of the reference jitter recurrence (src/lib.rs:236-249,
+    287-300) from each lane's carried state, jphi f32 [B] and the absolute
+    cell jcell int32 [B]: per sample `phase = f32(phase + inc)`, and if
+    phase > 1, `phase -= 1` (exact) and the cell advances. A float32 loop
+    over samples, vectorized over lanes (torch's CPU cumsum would add in
+    double). Returns the post-update (phi f32 [B, T], cell int32 [B, T])
+    and the final (jphi, jcell)."""
+    inc = float(np.float32(inc))
+    p, c = jphi.clone(), jcell.clone()
+    B = p.shape[0]
+    phi = torch.empty(B, T, dtype=torch.float32, device=p.device)
+    cell = torch.empty(B, T, dtype=torch.int32, device=p.device)
+    for i in range(T):
+        p = p + inc
+        wrap = p > 1.0
+        p = torch.where(wrap, p - 1.0, p)
+        c = c + wrap.to(torch.int32)
+        phi[:, i] = p
+        cell[:, i] = c
+    return phi, cell, p, c
+
+
+def synth_fused_reference(tables: FusedTables, phi: Optional[torch.Tensor],
+                          cell: Optional[torch.Tensor], sf: torch.Tensor,
                           si: torch.Tensor, T: int, kcar: bool,
-                          g0: Optional[torch.Tensor] = None):
+                          g0: Optional[torch.Tensor] = None,
+                          lat_base: Optional[torch.Tensor] = None,
+                          inc: Optional[float] = None):
     """Plain PyTorch version of the fused kernel (see the module doc).
     `g0` (int32 [B] or None for zeros): each lane's sample offset, so lane b
-    renders absolute samples g0[b] + 1 .. g0[b] + T."""
+    renders absolute samples g0[b] + 1 .. g0[b] + T. With phi and cell None
+    it runs the 'carry' mode: the jitter rate `inc`, si [B, 5] with the
+    carried jitter state in columns 3-4, and `lat_base` (int32 [B] or None
+    for zeros) the absolute cell of each lane's lattice row 0."""
     dev = tables.n.device
     B = tables.n.shape[0]
     F = NUM_FORMANTS
+
+    jfinal = None
+    if phi is None:
+        phi, cell_abs, *jfinal = jitter_carry(si[:, 3].view(torch.float32),
+                                              si[:, 4], inc, T)
+        cell = (cell_abs if lat_base is None
+                else cell_abs - lat_base.to(torch.int32)[:, None])
 
     # ---- A-B: sequencer, pitch jitter, frequency -----------------------
     fc_ = freq_chain(tables, _k1(B, T, g0, dev), phi, cell)
@@ -300,6 +359,9 @@ def synth_fused_reference(tables: FusedTables, phi: torch.Tensor,
     states = lehmer_block_states(_i32_to_u32(si[:, 1]), T)    # [B, T]
     noise = random_f32_from_state(states)[..., None]
     si_out[:, 1] = _u32_to_i32(states[:, -1])
+    if jfinal is not None:
+        si_out[:, 3] = jfinal[0].view(torch.int32)
+        si_out[:, 4] = jfinal[1]
 
     nw = saw + (noise - saw) * br_e
     alpha = exp_approx(sm_e)
@@ -429,13 +491,18 @@ def _check_sched(phi, cell, T: int, dev):
     return phi.shape[0], phi.stride(0)
 
 
-def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
-                     cell: torch.Tensor, sf: torch.Tensor, si: torch.Tensor,
-                     T: int, kcar: bool, g0: Optional[torch.Tensor] = None):
+def fused_synth_cuda(tables: FusedTables, phi: Optional[torch.Tensor],
+                     cell: Optional[torch.Tensor], sf: torch.Tensor,
+                     si: torch.Tensor, T: int, kcar: bool,
+                     g0: Optional[torch.Tensor] = None,
+                     lat_base: Optional[torch.Tensor] = None,
+                     inc: Optional[float] = None):
     """Launch synth/csrc/fused_synth.cu on the current stream. (phi, cell)
     is [T] (shared by every lane) or [Ss, T] (one row per group of B // Ss
     s-major lanes; rows may be overlapping views, see _check_sched); `g0`
-    int32 [B] or None, as in synth_fused_reference."""
+    int32 [B] or None, as in synth_fused_reference. With phi and cell None
+    it launches the 'carry' mode (si [B, 5], `lat_base` int32 [B] or None,
+    the jitter rate `inc`), counted as LAUNCHES['fused_synth_carry']."""
     import ctypes
 
     from ._build import load_library
@@ -445,11 +512,22 @@ def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
     if T <= 0 or T % CHUNK:
         raise ValueError(f"T={T} must be a positive multiple of {CHUNK}")
     f32, i32 = torch.float32, torch.int32
-    Ss, row_stride = _check_sched(phi, cell, T, dev)
-    if B % Ss:
-        raise ValueError(f"{Ss} schedule rows for {B} lanes")
+    carry = phi is None
+    if carry:
+        if cell is not None or inc is None:
+            raise ValueError("the carry mode takes phi=cell=None and inc")
+        Ss, row_stride = 1, 0
+        if lat_base is not None:
+            _check("lat_base", lat_base, i32, (B,), dev)
+    else:
+        if lat_base is not None or inc is not None:
+            raise ValueError("lat_base and inc belong to the carry mode "
+                             "(phi=cell=None)")
+        Ss, row_stride = _check_sched(phi, cell, T, dev)
+        if B % Ss:
+            raise ValueError(f"{Ss} schedule rows for {B} lanes")
     _check("sf", sf, f32, (B, 3 * NUM_FORMANTS), dev)
-    _check("si", si, i32, (B, 3), dev)
+    _check("si", si, i32, (B, 5 if carry else 3), dev)
     if g0 is not None:
         _check("g0", g0, i32, (B,), dev)
 
@@ -459,20 +537,20 @@ def fused_synth_cuda(tables: FusedTables, phi: torch.Tensor,
     sf_out = torch.empty_like(sf)
     si_out = torch.empty_like(si)
     p = ctypes.c_void_p
+
+    def ptr(t):
+        return p(None if t is None else t.data_ptr())
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.grail_fused_synth(
-            p(tables.n.data_ptr()), p(tables.scal.data_ptr()),
-            p(tables.vec.data_ptr()), p(tables.latp.data_ptr()),
-            p(tables.latf.data_ptr()), p(tables.lata.data_ptr()),
-            p(tables.par.data_ptr()), p(leh.data_ptr()),
-            p(phi.data_ptr()), p(cell.data_ptr()),
-            p(None if g0 is None else g0.data_ptr()),
-            p(sf.data_ptr()), p(si.data_ptr()),
-            p(audio.data_ptr()), p(sf_out.data_ptr()),
-            p(si_out.data_ptr()),
-            B, E, W, T, B // Ss, row_stride, int(bool(kcar)), p(stream))
-        LAUNCHES["fused_synth"] += 1
+            ptr(tables.n), ptr(tables.scal), ptr(tables.vec),
+            ptr(tables.latp), ptr(tables.latf), ptr(tables.lata),
+            ptr(tables.par), ptr(leh), ptr(phi), ptr(cell), ptr(g0),
+            ptr(lat_base), ptr(sf), ptr(si), ptr(audio), ptr(sf_out),
+            ptr(si_out), B, E, W, T, B // Ss, row_stride, int(bool(kcar)),
+            int(carry), float(np.float32(inc or 0.0)), p(stream))
+        LAUNCHES["fused_synth_carry" if carry else "fused_synth"] += 1
     raise_on(lib, rc, "fused_synth kernel launch")
     return audio, sf_out, si_out
 
@@ -576,7 +654,9 @@ def synth_fused(tables: FusedTables, T: int, impl: str,
     phase is then the exact post-update reference phase.
     `phase_q32` (uint32 values in int64 [B]) sets each lane's initial Q32
     phase exactly, in place of state.phase; `g0` (int [B]) offsets each
-    lane's samples (the split's segments)."""
+    lane's samples (the split's segments). The 'carry' mode has one entry,
+    the serving tick (runtime/stream._tick), which keeps the carried rows
+    on the card between launches."""
     if sched is None:
         raise ValueError("pass sched=(phi, cell)")
     if impl not in IMPLEMENTATIONS:
@@ -603,7 +683,8 @@ def synth_fused(tables: FusedTables, T: int, impl: str,
 
 
 __all__ = ["CHUNK", "CHUNK_PRE", "LAUNCHES", "FusedTables", "FreqChain",
-           "build_tables", "freq_chain", "q32_carrier", "f32_carrier",
+           "build_tables", "score_tables", "lattice_tables", "jitter_carry",
+           "freq_chain", "q32_carrier", "f32_carrier",
            "synth_fused_reference", "fused_synth_cuda", "IMPLEMENTATIONS",
            "synth_fused", "state_rows", "phase_q32_pre_reference", "phase_q32_pre_cuda",
            "PRE_IMPLEMENTATIONS", "phase_q32_pre_block", "fused_synth_slots"]

@@ -320,3 +320,153 @@ def test_core_route_on_the_card(cuda):
     for B, maxN in ((64, 356_000), (1, 88_190)):
         assert g.route(B, maxN, None, cuda, 44100.0, "core") == (
             ("kernel", "q32") + papi.choose_split(B, maxN, pk.CORE_MAX_LANES))
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's carry mode and the serving path (runtime/stream.py)
+# ---------------------------------------------------------------------------
+
+def _carry_setup(device, N, seed=0):
+    """Carry-mode inputs for N lanes: tables over sliding lattice windows
+    of 64 rows (row 0 at absolute cell lat_base != 0), per-lane score
+    offsets, and
+    carried rows sf [N, 24], si [N, 5] with nonzero filters, seeds, carrier
+    phases and each lane's exact jitter state at its own position."""
+    from grail_tpu_torch.synth.schedule import get_schedule
+
+    rng = np.random.default_rng(seed)
+    voice = g.get_voice("plain")
+    inc = voice.jitter_frequency
+    texts = ["hello there", "aeio", "the quick brown fox"]
+    E = max(g.text_to_score(t, voice).num_elems for t in texts)
+    base = [g.text_to_score(t, voice, pad_to=E) for t in texts]
+    scores = stack_scores([base[i % 3] for i in range(N)])
+    W = 64
+    pos = rng.integers(200_000, 380_000, N)     # cells 72 to 138
+    sched = get_schedule(inc)
+    js = [sched.state_at(int(p)) for p in pos]
+    # every third lane reads past its window's last row (the clamp edge)
+    lat_base = np.asarray([max(c - (70 if i % 3 == 2 else
+                                    int(rng.integers(0, 8))), 0)
+                           for i, (_, c) in enumerate(js)], np.int32)
+    lats = [build_lattice(int(s), 882_000, inc) for s in range(N)]
+    lattice = JitterLattice(*(np.stack([f[b:b + W] for f, b in zip(
+        fs, lat_base)]) for fs in zip(*lats)))
+    jp = (inc, voice.jitter_delta_frequency,
+          voice.jitter_delta_formant_frequency, voice.jitter_delta_amplitude)
+    tables = kf.build_tables(scores, lattice, jp, voice.sample_rate,
+                             device=device)
+    sf = torch.from_numpy(rng.standard_normal((N, 24)).astype(np.float32)
+                          * 1e-3).to(device)
+    si = np.zeros((N, 5), np.int32)
+    si[:, 1] = rng.integers(0, 2 ** 31, N)
+    si[:, 2] = rng.random(N).astype(np.float32).view(np.int32)
+    si[:, 3] = np.asarray([p for p, _ in js], np.float32).view(np.int32)
+    si[:, 4] = [c for _, c in js]
+    return dict(tables=tables, sf=sf, si=torch.from_numpy(si).to(device),
+                g0=torch.from_numpy(rng.integers(22_050, 60_000, N).astype(
+                    np.int32)).to(device),
+                lat_base=torch.from_numpy(lat_base).to(device), inc=inc)
+
+
+@pytest.mark.parametrize("N", [3, 128])
+def test_carry_kernel_equals_plain_bitwise(cuda, N):
+    # five ticks, each version carrying its own state and the offsets
+    # advancing by a block: audio, sf, si (seed, carrier phase, jitter
+    # phase and absolute cell) bit for bit at every tick
+    x = _carry_setup(cuda, N)
+    blk = 1024
+    kst = pst = (x["sf"], x["si"])
+    g0 = x["g0"]
+    for tick in range(5):
+        kw = dict(g0=g0, lat_base=x["lat_base"], inc=x["inc"])
+        n0 = dict(kf.LAUNCHES)
+        a, *kst = kf.fused_synth_cuda(x["tables"], None, None, *kst, blk,
+                                      True, **kw)
+        assert kf.LAUNCHES["fused_synth_carry"] == \
+            n0["fused_synth_carry"] + 1
+        assert kf.LAUNCHES["fused_synth"] == n0["fused_synth"]
+        r, *pst = kf.synth_fused_reference(x["tables"], None, None, *pst,
+                                           blk, True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kst[1], pst[1]), tick
+        assert torch.equal(kst[0], pst[0]), tick
+        assert torch.equal(a, r), tick
+        assert bool(torch.isfinite(a).all())
+        g0 = g0 + blk
+    assert float(a.abs().max()) > 0.01
+    # the jitter state moved on by five blocks of the recurrence
+    assert bool((kst[1][:, 4] >= x["si"][:, 4]).all())
+    assert bool((kst[1][:, 4] > x["si"][:, 4]).any())
+
+
+def test_carry_wrapper_rejects_bad_inputs(cuda):
+    x = _carry_setup(cuda, 2)
+    kw = dict(g0=x["g0"], lat_base=x["lat_base"], inc=x["inc"])
+    with pytest.raises(ValueError, match="si"):
+        kf.fused_synth_cuda(x["tables"], None, None, x["sf"],
+                            x["si"][:, :3].contiguous(), 1024, True, **kw)
+    with pytest.raises(ValueError, match="lat_base"):
+        kf.fused_synth_cuda(x["tables"], None, None, x["sf"], x["si"], 1024,
+                            True, g0=x["g0"], lat_base=x["lat_base"].long(),
+                            inc=x["inc"])
+    with pytest.raises(ValueError, match="inc"):
+        kf.fused_synth_cuda(x["tables"], None, None, x["sf"], x["si"], 1024,
+                            True, g0=x["g0"])
+    phi, cell = device_window(x["inc"], 0, 1024, cuda)
+    with pytest.raises(ValueError, match="carry"):
+        kf.fused_synth_cuda(x["tables"], phi, cell, x["sf"],
+                            x["si"][:, :3].contiguous(), 1024, True, **kw)
+
+
+def _fed_pool(device, n=3):
+    from grail_tpu_torch.runtime.stream import StreamPool
+
+    pool = StreamPool(n, voice="plain", language="english", device=device,
+                      jitter_horizon_s=0.3, seeds=[3, 7, 6][:n])
+    pool.feed(0, "[rate:8]hello hello", parse_commands=True)
+    pool.feed(1, "[pitch:180]aeio", parse_commands=True)
+    pool.flush()
+    return pool
+
+
+def test_pool_on_cuda_matches_cpu(cuda):
+    # ten ticks through a window slide: the card's pool launches the carry
+    # kernel once per tick and renders what the CPU's plain pool renders
+    from grail_tpu_torch.utils import sample_error_db
+
+    on_card, on_cpu = _fed_pool("cuda"), _fed_pool("cpu")
+    for p in (on_card, on_cpu):
+        for _ in range(16):
+            p.read_block()
+    n0 = dict(kf.LAUNCHES)
+    a = np.concatenate([on_card.read_block() for _ in range(10)], axis=1)
+    assert kf.LAUNCHES["fused_synth_carry"] == n0["fused_synth_carry"] + 10
+    assert all(kf.LAUNCHES[k] == n0[k] for k in n0
+               if k != "fused_synth_carry")
+    b = np.concatenate([on_cpu.read_block() for _ in range(10)], axis=1)
+    assert [s._lat_base for s in on_card.sessions] == \
+        [s._lat_base for s in on_cpu.sessions]
+    assert any(s._lat_base > 0 for s in on_card.sessions)
+    for i in range(3):
+        assert sample_error_db(a[i], b[i]) < -100 or np.array_equal(a[i],
+                                                                    b[i])
+    assert torch.equal(on_card._si.cpu(), on_cpu._si)
+
+
+def test_solo_read_on_cuda_matches_cpu(cuda):
+    from grail_tpu_torch.runtime.stream import StreamSession
+    from grail_tpu_torch.utils import sample_error_db
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        s = StreamSession(voice="plain", language="english", device=device)
+        s.feed("hello")
+        s.flush()
+        n0 = kf.LAUNCHES["fused_synth_carry"]
+        outs.append(s.read(4 * 1024))
+        assert kf.LAUNCHES["fused_synth_carry"] == n0 + (
+            4 if device == "cuda" else 0)
+    assert np.abs(outs[0]).max() > 0.01
+    assert sample_error_db(outs[0], outs[1]) < -100 or np.array_equal(
+        *outs)
