@@ -64,13 +64,39 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      the plain version and the bound, _prepare_tick's fast path, full pass
      and full pass with one feed, read_block, the tick_pipelined period,
      read_blocks(8), each as a share of the 23.22 ms block budget.
+ 12. the FP32 issue-rate probe (fma_peak.cu), run right after the build
+     because every operations bound below is stated against its result:
+     both variants at 4,096 updates of the [256, 8, 128] tile, 8 grid steps;
+     mul_add bit-equal to its plain version, fma within 4,096 ulps of it;
+     both rates beside the data sheet's.
+ 13. the native carrier pre-pass and kernel 1's host_track mode: the host
+     library built from native/*.cpp; the native track bit-equal to its
+     plain numpy version on a short utterance; kernel 1 reading the track
+     bit-equal (audio, sf, si) to its plain version on all the lanes of the
+     long-form split (the 86.5 s text below).
+ 14. the solo long-form path at full width: an 86.5 s English text, voice
+     plain, through cli.main(... -o wav -s) must route (kernel, track,
+     S > 1) and launch fused_synth_track once and no other kernel; the WAV
+     read back finite and of the expected length; synthesize() of the same
+     text < -60 dB spectral error against the native oracle
+     (pass_spectral_minus60) and within 5e-5 of the in-kernel recurrence's
+     route (exact_carrier="kernel", S = 1). Times: the pre-pass cold and
+     warm (it is memoized), the track's upload, the track route's program
+     and kernel, the unsplit kcar kernel, end to end. Then one REPL line
+     (interactive.main fed "hello") on the card.
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
 split's, with the unsplit time beside it; synth_core: one launch of the
 core route, with the per-call time and the unsplit launch beside it;
-fused_synth_carry: one tick at N = 512, with N = 128 beside it), and the
-last line {"ok": true, "device": {...}}.
+fused_synth_carry: one tick at N = 512, with N = 128 beside it;
+fused_synth_track: the long-form split's lanes; fma_peak: the mul_add
+variant, with the fma variant beside it). bound_ms states operations
+against the card's peak FP32 instruction rate, 33.5e12 per second: half the
+data sheet's 67 TFLOP/s, which counts an FMA as two, while the counts here
+are one per instruction. bound_measured_ms states them against the mul_add
+rate the probe measured in this run (measured_issue_rate), which moves with
+the card's clocks. The last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --scaling
 
@@ -104,10 +130,18 @@ SCALING_S_CORE = {64: (1, 2, 4, 8, 16, 32, 64), 1: (1, 8, 32, 64, 128)}
 CORE_CHECK_BLOCKS = 3  # 4096-sample blocks of kernel 3 held against plain
 
 # the bound of a kernel: the larger of its bytes (each input read once, each
-# output written once) over the memory rate and its operations over the
-# float32 rate outside the tensor cores, one H100 SXM (NVIDIA's data sheet)
+# output written once) over the memory rate of one H100 SXM (NVIDIA's data
+# sheet) and its operations over the card's peak FP32 instruction rate. The
+# counts below are one per instruction, and the kernels are built with
+# -fmad=false, so they issue a multiply and an add where the data sheet's
+# 67 TFLOP/s counts one fused multiply-add as two operations: the rate that
+# bounds them is half the data sheet's, 33.5e12 instructions per second
+# (benchmarks/fma_peak.py's PEAK_FP32_INSTRUCTIONS). The
+# rate the probe (phase 12) measures on this card for an unfused multiply +
+# add is kept beside it, set before any bound is computed; it lies below the
+# peak and moves with the clocks, so it is stated but bounds nothing.
 MEM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+RATES = {"measured": None}        # the probe's mul_add instructions per s
 # operations per lane-sample, counted from the sources (float and integer
 # ops alike, at the float32 rate):
 #  - synth_core.cu: per formant lp 2, b' 5, c' 5, b' + b 1; the 7-add
@@ -127,6 +161,20 @@ PRE_OPS = 3
 #  - fused_synth.cu's carry mode beyond FUSED_OPS: the jitter step (add,
 #    compare, subtract, cell increment)
 JITTER_OPS = 4
+#  - fused_synth.cu's host_track mode: the Q32 scale, truncation, warp scan
+#    and conversion (~10) give way to one load of the track
+TRACK_OPS = FUSED_OPS - 10 + 1
+
+# the solo long-form path (phases 13-14): benchmarks/fidelity_suite.py's
+# long_en text, 86.5 s with the stub intonator (0.5 s per phoneme)
+LONG_EN = ("the quick brown fox jumps over the lazy dog, while seventeen "
+           "synthesizers hum along in the hall. is anyone still listening "
+           "to this? the formants drift on and on.")
+LONG_VOICE, LONG_LANGUAGE = "plain", "english"
+TRACK_CHECK_TEXT = "hi"     # native track vs its plain numpy version
+GATE_DB = -60.0             # the fidelity gate: spectral error vs the oracle
+KCAR_ATOL = 5e-5            # track route vs the in-kernel recurrence
+PROBE_ITERS = 4096
 
 # the serving phase (StreamPool, kernel 1's carry mode): voice plain,
 # language english, 1,024-sample blocks, every session fed text
@@ -193,10 +241,17 @@ def carry_tick_bytes(ins, si0, si1, blk):
 
 
 def bound(n_bytes, ops):
-    """(bound_ms, bound_by) of a kernel that must move n_bytes and do ops."""
+    """(bound_ms, bound_by, bound_measured_ms) of a kernel that must move
+    n_bytes and issue ops instructions: against the card's peak instruction
+    rate, and against the probe's measured mul_add rate beside it."""
+    from grail_tpu_torch.benchmarks.fma_peak import PEAK_FP32_INSTRUCTIONS
+
     t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = ops / PEAK_FP32_INSTRUCTIONS * 1e3
+    measured = max(t_bytes, ops / RATES["measured"] * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", measured
+    return t_ops, "operations", measured
 
 
 def median_ms(fn, reps=REPS):
@@ -286,6 +341,23 @@ def main():
     from grail_tpu_torch.synth.schedule import device_window
     from grail_tpu_torch.utils import sample_error_db
 
+    def drive(label, fn, expect):
+        """Run one path with every launch count set to 0 just before it;
+        returns (outputs, launch counts) and fails unless exactly the
+        kernels in `expect` were launched (each at least once)."""
+        for k in kf.LAUNCHES:
+            kf.LAUNCHES[k] = 0
+        outs = fn()
+        torch.cuda.synchronize()
+        counts = dict(kf.LAUNCHES)
+        if any((n >= 1) != (k in expect) for k, n in counts.items()):
+            raise AssertionError(f"{label} launched {counts}, expected "
+                                 f"exactly {sorted(expect)}")
+        return outs, counts
+
+    # ---- 12: the FP32 issue-rate probe (before every bound) -------------
+    probe = probe_phase(card, dev, drive)
+
     texts = bench_texts()
     voice = g.get_voice("generic")
     sr = float(voice.sample_rate)
@@ -325,20 +397,6 @@ def main():
               f"max-abs {sf_err}, bit-equal samples "
               f"{float((a == p).mean())}", flush=True)
         return err
-
-    def drive(label, fn, expect):
-        """Run one path with every launch count set to 0 just before it;
-        returns (outputs, launch counts) and fails unless exactly the
-        kernels in `expect` were launched (each at least once)."""
-        for k in kf.LAUNCHES:
-            kf.LAUNCHES[k] = 0
-        outs = fn()
-        torch.cuda.synchronize()
-        counts = dict(kf.LAUNCHES)
-        if any((n >= 1) != (k in expect) for k, n in counts.items()):
-            raise AssertionError(f"{label} launched {counts}, expected "
-                                 f"exactly {sorted(expect)}")
-        return outs, counts
 
     def against_cpu(label, on_card, on_cpu):
         """The card's outputs against the CPU's on the same route."""
@@ -466,8 +524,8 @@ def main():
         B * T_ * (SEQ_OPS + 3 * search_steps(tables.n.shape[1]) + PRE_OPS))
     print(f"[6 split] phase_q32_pre B={B} T={T_}: [{T_ // BLOCK_SIZE}, {B}] "
           f"seam phases bit-equal to plain; kernel {pre_ms} ms (median of "
-          f"{REPS}), plain PyTorch {pre_plain_ms} ms (one run); card {card}",
-          flush=True)
+          f"{REPS}), plain PyTorch {pre_plain_ms} ms (one run); bound "
+          f"{bound_text(pre_bound)}; card {card}", flush=True)
     sf0, si0 = zero_state()
     for s in range(1, S):
         n = s * (T_ // S) - WARMUP
@@ -511,8 +569,8 @@ def main():
           f"{split_ms} ms (median of {REPS}), plain PyTorch {split_plain_ms} "
           f"ms (one run); split program (pre-pass + tiling + kernel) "
           f"{program_ms} ms; split vs unsplit Q32 on the same tables: worst "
-          f"utterance {max(dbs)} dB, max-abs {err_su}; card {card}",
-          flush=True)
+          f"utterance {max(dbs)} dB, max-abs {err_su}; kernel 1's bound "
+          f"{bound_text(fused_bound)}; card {card}", flush=True)
     del split, tables, out_split, out_unsplit
     torch.cuda.empty_cache()
 
@@ -619,6 +677,9 @@ def main():
     serve = serving(card, dev, drive)
     s512, s128 = (serve["by_n"][n] for n in SERVE_N[::-1])
 
+    # ---- 13-14: the solo long-form route --------------------------------
+    lf = long_form(card, dev, drive, check)
+
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
 
@@ -631,6 +692,7 @@ def main():
          "launches": launches["fused_synth"], "max_abs_err": max_abs,
          "ms": split_ms, "plain_ms": split_plain_ms,
          "bound_ms": fused_bound[0], "bound_by": fused_bound[1],
+         "bound_measured_ms": fused_bound[2],
          "library_ms": None, "shape": [L, Text],
          "unsplit_ms": unsplit_ms, "unsplit_plain_ms": unsplit_plain_ms,
          "unsplit_shape": [B, T]},
@@ -641,6 +703,7 @@ def main():
          "max_abs_err": float((q_k - q_p).abs().max()),
          "ms": pre_ms, "plain_ms": pre_plain_ms,
          "bound_ms": pre_bound[0], "bound_by": pre_bound[1],
+         "bound_measured_ms": pre_bound[2],
          "library_ms": None, "shape": [B, T_]},
         {"name": "synth_core", "route": "cuda",
          "source": "grail_tpu_torch/synth/csrc/synth_core.cu",
@@ -649,7 +712,8 @@ def main():
          "max_abs_err": core_main["max_abs"],
          "ms": core_main["ms"], "plain_ms": core_main["plain_ms"],
          "bound_ms": core_main["bound"][0],
-         "bound_by": core_main["bound"][1], "library_ms": None,
+         "bound_by": core_main["bound"][1],
+         "bound_measured_ms": core_main["bound"][2], "library_ms": None,
          "shape": [BLOCK_SIZE, core_main["lanes"]],
          "per_call_ms": core_call_ms, "blocks": core_calls,
          "unsplit_ms": core["unsplit"]["ms"],
@@ -663,6 +727,7 @@ def main():
          "launches": serve["launches"], "max_abs_err": serve["max_abs"],
          "ms": s512["kernel_ms"], "plain_ms": s512["plain_ms"],
          "bound_ms": s512["bound_ms"], "bound_by": s512["bound_by"],
+         "bound_measured_ms": s512["bound_measured_ms"],
          "library_ms": None, "shape": [SERVE_N[-1], SERVE_BLOCK],
          "per": "tick", "device_ms": s512["kernel_device_ms"],
          "n128_ms": s128["kernel_ms"],
@@ -670,11 +735,308 @@ def main():
          "n128_plain_ms": s128["plain_ms"],
          "n128_bound_ms": s128["bound_ms"],
          "read_blocks8_kernel_ms": s512["read_blocks8_kernel_ms"],
-         "read_blocks8_host_ms": s512["read_blocks8_ms"]}]}),
+         "read_blocks8_host_ms": s512["read_blocks8_ms"]},
+        {"name": "fused_synth_track", "route": "cuda",
+         "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
+         "replaces": "grail_tpu/synth/kernel_fused.py:420",
+         "launches": lf["launches"], "max_abs_err": lf["max_abs"],
+         "ms": lf["kernel_ms"], "plain_ms": lf["plain_ms"],
+         "bound_ms": lf["bound"][0], "bound_by": lf["bound"][1],
+         "bound_measured_ms": lf["bound"][2], "library_ms": None,
+         "shape": lf["shape"], "program_ms": lf["program_ms"],
+         "kcar_unsplit_ms": lf["kcar_ms"],
+         "kcar_unsplit_shape": [1, lf["T_kcar"]],
+         "spectral_error_db": lf["spectral_db"],
+         "pass_spectral_minus60": lf["pass_spectral_minus60"]},
+        {"name": "fma_peak", "route": "cuda",
+         "source": "grail_tpu_torch/synth/csrc/fma_peak.cu",
+         "replaces": "benchmarks/vpu_peak.py:44",
+         "launches": probe["launches"], "max_abs_err": probe["max_abs"],
+         "ms": probe["mul_add"]["ms"], "plain_ms": probe["plain_ms"],
+         "bound_ms": probe["bound"][0], "bound_by": probe["bound"][1],
+         "bound_measured_ms": probe["bound"][2], "library_ms": None,
+         "shape": probe["shape"], "variant": "mul_add",
+         "measured_issue_rate": probe["mul_add"]["instructions_per_s"],
+         "peak_issue_rate": probe["peak_issue_rate"],
+         "peak_share": probe["mul_add"]["peak_share"],
+         "datasheet_share": probe["mul_add"]["datasheet_share"],
+         "fma_ms": probe["fma"]["ms"],
+         "fma_bound_ms": probe["fma_bound_ms"],
+         "fma_instructions_per_s": probe["fma"]["instructions_per_s"],
+         "fma_peak_share": probe["fma"]["peak_share"],
+         "fma_datasheet_share": probe["fma"]["datasheet_share"],
+         "fma_max_abs_err": probe["fma_max_abs"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def bound_text(b):
+    """A bound (see `bound`) for a printed line."""
+    from grail_tpu_torch.benchmarks.fma_peak import PEAK_FP32_INSTRUCTIONS
+
+    return (f"{b[0]} ms ({b[1]}; operations at the card's peak "
+            f"{PEAK_FP32_INSTRUCTIONS:.4g} instructions/s; {b[2]} ms at "
+            f"the measured mul_add rate {RATES['measured']:.4g}/s)")
+
+
+def probe_phase(card, dev, drive):
+    """Phase 12: the FP32 issue-rate probe (benchmarks/fma_peak.py). Both
+    variants at PROBE_ITERS updates of the [256, 8, 128] tile over 8 grid
+    steps, held against the plain version at the same iters (mul_add bit
+    for bit, fma within PROBE_ITERS ulps of a value below 2); then the
+    timed launches, with the launch counts set to 0 just before. Sets the
+    measured rate that every bound is stated beside."""
+    import numpy as np
+    import torch
+
+    from grail_tpu_torch.benchmarks import fma_peak as fp
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((1.0 + 0.5 * rng.random(fp.TILE))
+                         .astype(np.float32)).to(dev)
+    plain, plain_ms = once_ms(lambda: fp.fma_peak_reference(
+        x, fp.GRID, PROBE_ITERS))
+    out = fp.fma_peak(x, fp.GRID, PROBE_ITERS, "mul_add")
+    fused = fp.fma_peak(x, fp.GRID, PROBE_ITERS, "fma")
+    torch.cuda.synchronize()
+    max_abs = float((out - plain).abs().max())
+    fma_abs = float((fused - plain).abs().max())
+    if not torch.equal(out, plain):
+        raise AssertionError(f"[12 probe] mul_add differs from the plain "
+                             f"version (max-abs {max_abs})")
+    if not (fma_abs <= PROBE_ITERS * 2.0 ** -22
+            and bool(torch.isfinite(fused).all())):
+        raise AssertionError(f"[12 probe] fma vs plain max-abs {fma_abs}")
+    m, counts = drive("fma_peak probe",
+                      lambda: fp.measure(iters=PROBE_ITERS, device=dev),
+                      {"fma_peak"})
+    RATES["measured"] = m["mul_add"]["instructions_per_s"]
+    # the mul_add variant must round twice per update, so its work is two
+    # instructions; the fma variant's is one
+    bnd, fma_bnd = (bound(nbytes(x, out), fp.instructions(
+        x.numel(), fp.GRID, PROBE_ITERS, v)) for v in fp.VARIANTS)
+    m.update(launches=counts["fma_peak"], max_abs=max_abs,
+             fma_max_abs=fma_abs, plain_ms=plain_ms,
+             shape=[fp.GRID, x.numel()], bound=bnd, fma_bound_ms=fma_bnd[0],
+             peak_issue_rate=fp.PEAK_FP32_INSTRUCTIONS)
+    print(f"[12 probe] fma_peak, tile {list(fp.TILE)} x {fp.GRID} grid steps "
+          f"x {PROBE_ITERS} updates x = x*a + b: mul_add bit-equal to the "
+          f"plain version, fma max-abs {fma_abs} from it; launches {counts}; "
+          f"mul_add (FMUL + FADD) {m['mul_add']['ms']} ms, "
+          f"{m['mul_add']['instructions_per_s']:.6g} instructions/s "
+          f"({m['mul_add']['peak_share']:.4f} of the card's peak "
+          f"{fp.PEAK_FP32_INSTRUCTIONS:.4g} instructions/s; = FLOP/s, "
+          f"{m['mul_add']['datasheet_share']:.4f} of the data sheet's "
+          f"{fp.DATASHEET_FP32_FLOPS:.3g}); fma (FFMA) "
+          f"{m['fma']['ms']} ms, {m['fma']['instructions_per_s']:.6g} "
+          f"instructions/s ({m['fma']['peak_share']:.4f} of the peak), "
+          f"{m['fma']['flops_per_s']:.6g} FLOP/s "
+          f"({m['fma']['datasheet_share']:.4f} of the data sheet's); CUDA "
+          f"events, median of {fp.REPS}; plain PyTorch {plain_ms} ms (one "
+          f"run); the probe's own bound {bound_text(bnd)}, the fma "
+          f"variant's {fma_bnd[0]} ms; every kernel's operations bound uses "
+          f"the peak rate, with the measured one beside it; card {card}",
+          flush=True)
+    return m
+
+
+def long_form(card, dev, drive, check):
+    """Phases 13 and 14: the native carrier pre-pass, kernel 1's host_track
+    mode against its plain version on the long-form split's own lanes, and
+    the solo long-form path from the command line to a WAV, held against the
+    native oracle and the in-kernel recurrence. Returns the numbers of the
+    fused_synth_track entry."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import grail_tpu_torch as g
+    import grail_tpu_torch.api as papi
+    from grail_tpu_torch import cli, interactive
+    from grail_tpu_torch.api import BLOCK_SIZE, WARMUP, _round_up
+    from grail_tpu_torch.oracle import native as onat
+    from grail_tpu_torch.runtime import native as rnat
+    from grail_tpu_torch.runtime.wav import load_wav
+    from grail_tpu_torch.synth import kernel_fused as kf
+    from grail_tpu_torch.synth.schedule import device_window
+    from grail_tpu_torch.utils import sample_error_db, spectral_error_db
+    from grail_tpu_torch.voices import get_spec
+
+    # ---- 13: the host library, the pre-pass, the host_track mode --------
+    t0 = time.perf_counter()
+    rnat.load_library()
+    print(f"[13 native] {os.path.relpath(rnat.build_info['path'], ROOT)} in "
+          f"{time.perf_counter() - t0:.2f} s (host compiler, "
+          f"{' '.join(rnat.CXXFLAGS)})", flush=True)
+    spec = get_spec(LONG_VOICE)
+    pel = g.text_to_phoneme_elems(TRACK_CHECK_TEXT, LONG_VOICE, LONG_LANGUAGE)
+    nat = onat.native_carrier_phase_track(pel, spec, 0)
+    ref = onat.carrier_phase_track_reference(pel, spec, 0)
+    if nat.shape != ref.shape or not np.array_equal(nat.view(np.uint32),
+                                                    ref.view(np.uint32)):
+        raise AssertionError("[13] the native carrier track differs from "
+                             "its plain version")
+    print(f"[13 native] carrier track of {TRACK_CHECK_TEXT!r} "
+          f"({len(nat)} samples): native pre-pass bit-equal to the plain "
+          f"numpy version", flush=True)
+
+    voice = g.get_voice(LONG_VOICE)
+    sr, inc = float(voice.sample_rate), voice.jitter_frequency
+    pelems = g.text_to_phoneme_elems(LONG_EN, voice, LONG_LANGUAGE)
+    score = papi.score_from_phoneme_elems(pelems, voice)
+    batch = papi._Batch([score], voice, [0])
+    N = batch.Ns[0]
+    papi._carrier_cache.clear()
+    t0 = time.perf_counter()
+    track = papi._carrier_track_for(pelems, voice, 0)
+    pre_cold_ms = (time.perf_counter() - t0) * 1e3
+    pre_warm_ms = host_ms(lambda: papi._carrier_track_for(pelems, voice, 0))
+    impl, carrier, S, T = g.route(1, N, None, dev, sr, track=True)
+    if (impl, carrier) != ("kernel", "track") or S < 2:
+        raise AssertionError(f"[13] long-form routed {(impl, carrier, S, T)}")
+    tables = batch.tables(T, dev)
+    upload_ms = host_ms(lambda: papi._split_carrier(track, T, S, dev),
+                        sync=True)
+    tables_t, seg, state, q, g0, car = papi._split_lanes(
+        tables, T, S, "kernel", inc, track)
+    sf, si = kf.state_rows(state, q)
+    Text = T // S + WARMUP
+    args = (tables_t, seg[0], seg[1], sf, si, Text, False)
+    kw = dict(g0=g0, carrier=car)
+    k_out = kf.fused_synth_cuda(*args, **kw)
+    r_out, plain_ms = once_ms(lambda: kf.synth_fused_reference(*args, **kw))
+    max_abs = check(f"[13] host_track {S} lanes x {Text}", k_out, r_out)
+    for name, x, y in zip(("audio", "sf", "si"), k_out, r_out):
+        if not torch.equal(x, y):
+            raise AssertionError(f"[13] host_track: the kernel's {name} "
+                                 f"differs from the plain version's")
+    del k_out, r_out
+    kernel_ms = median_ms(lambda: kf.fused_synth_cuda(*args, **kw))
+    program_ms = median_ms(lambda: papi._split_program(
+        tables, T, S, "kernel", inc, track))
+    bnd = bound(
+        nbytes(*tables_t, sf, si, g0) + (WARMUP + T) * 12 + S * Text * 4
+        + nbytes(sf, si),
+        S * Text * (SEQ_OPS + 3 * search_steps(tables_t.n.shape[1])
+                    + TRACK_OPS))
+    T1 = _round_up(N, BLOCK_SIZE)
+    tables1 = batch.tables(T1, dev)
+    phi1, cell1 = device_window(inc, 0, T1, dev)
+    sf1 = torch.zeros(1, 24, dtype=torch.float32, device=dev)
+    si1 = torch.zeros(1, 3, dtype=torch.int32, device=dev)
+    kcar_ms = median_ms(lambda: kf.fused_synth_cuda(
+        tables1, phi1, cell1, sf1, si1, T1, True))
+    print(f"[13 host_track] {LONG_VOICE}/{LONG_LANGUAGE}, {N} samples "
+          f"({N / sr:.3f} s): route (kernel, track, S={S}, T={T}), {S} lanes "
+          f"of {Text} samples; kernel 1 reading the track bit-equal to its "
+          f"plain version (audio, sf, si); kernel {kernel_ms} ms (CUDA "
+          f"events, median of {REPS}), plain PyTorch {plain_ms} ms (one "
+          f"run), bound {bound_text(bnd)}; track route's program (track "
+          f"upload + tiling + kernel) {program_ms} ms; the unsplit kcar "
+          f"kernel for the same utterance (1 lane x {T1}) {kcar_ms} ms; "
+          f"native pre-pass {pre_cold_ms} ms cold, {pre_warm_ms} ms warm "
+          f"(memoized), {N / sr / (pre_cold_ms / 1e3)} x realtime cold; "
+          f"track upload ({(WARMUP + T) * 4} bytes from pinned memory) "
+          f"{upload_ms} ms; card {card}", flush=True)
+    del tables, tables_t, tables1, car, seg
+    torch.cuda.empty_cache()
+
+    # ---- 14: the command line to a WAV, at full width ---------------------
+    build_dir = os.path.dirname(rnat.build_info["path"])
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        wav = os.path.join(tmp, "long.wav")
+
+        def cli_run():
+            rc = cli.main(["-v", LONG_VOICE, "-l", LONG_LANGUAGE, "-o", wav,
+                           "-s", LONG_EN])
+            if rc != 0:
+                raise AssertionError(f"[14] the CLI exited with {rc}")
+
+        _, counts = drive("cli long-form", cli_run, {"fused_synth_track"})
+        if counts["fused_synth_track"] != 1:
+            raise AssertionError(f"[14] the CLI launched {counts}")
+        pcm, wav_sr = load_wav(wav)
+        repl_wav = os.path.join(tmp, "repl.wav")
+        stdin = sys.stdin
+        sys.stdin = io.StringIO("hello\n")
+        try:
+            (_, repl_counts) = drive(
+                "interactive", lambda: interactive.main(
+                    ["-o", repl_wav, "--block", "1024"]),
+                {"fused_synth_carry"})
+        finally:
+            sys.stdin = stdin
+        repl, _ = load_wav(repl_wav)
+    if wav_sr != int(sr) or len(pcm) != N or not np.isfinite(pcm).all():
+        raise AssertionError(f"[14] WAV: {len(pcm)} samples at {wav_sr} Hz, "
+                             f"expected {N} at {int(sr)}")
+    if not (np.isfinite(repl).all() and np.abs(repl).max() > 0.01):
+        raise AssertionError("[14] the REPL's output is silent or not finite")
+
+    audio = g.synthesize(LONG_EN, LONG_VOICE, LONG_LANGUAGE)
+    a = audio.cpu().numpy()
+    if a.shape != (N,) or float(np.abs(a - pcm).max()) > 1.5 / 32767:
+        raise AssertionError("[14] the WAV is not synthesize()'s audio")
+    gold = onat.gold_dsp_chain(pelems, spec, 0)
+    spectral_db = spectral_error_db(a, gold)
+    sample_db = sample_error_db(a, gold)
+    pass_spectral_minus60 = bool(spectral_db < GATE_DB)
+    if not pass_spectral_minus60:
+        raise AssertionError(f"[14] spectral error {spectral_db} dB against "
+                             f"the oracle: the gate is {GATE_DB}")
+    route_k = g.route(1, N, "kernel", dev, sr)
+    if route_k[1:3] != ("kcar", 1):
+        raise AssertionError(f"[14] exact_carrier='kernel' routed {route_k}")
+    kcar, _ = drive("synthesize exact_carrier='kernel'", lambda: g.synthesize(
+        LONG_EN, LONG_VOICE, LONG_LANGUAGE, exact_carrier="kernel"),
+        {"fused_synth"})
+    kcar_err = float((audio - kcar).abs().max())
+    if not kcar_err <= KCAR_ATOL:
+        raise AssertionError(f"[14] track route vs kcar route: max-abs "
+                             f"{kcar_err} > {KCAR_ATOL}")
+    kcar_db = spectral_error_db(kcar.cpu().numpy(), gold)
+
+    def synth(**kwargs):
+        return g.synthesize(LONG_EN, LONG_VOICE, LONG_LANGUAGE, **kwargs)
+
+    def cold():
+        papi._carrier_cache.clear()
+        synth()
+
+    e2e_warm_ms = host_ms(synth, sync=True)
+    e2e_cold_ms = host_ms(cold, sync=True)
+    e2e_kcar_ms = host_ms(lambda: synth(exact_carrier="kernel"), sync=True)
+    front_ms = host_ms(lambda: papi.score_from_phoneme_elems(
+        g.text_to_phoneme_elems(LONG_EN, voice, LONG_LANGUAGE), voice))
+    print(f"[14 long-form] cli.main(-v {LONG_VOICE} -l {LONG_LANGUAGE} -o "
+          f"long.wav -s <{len(LONG_EN)} characters>): route (kernel, track, "
+          f"S={S}, T={T}); launches {counts}; WAV read back: {len(pcm)} "
+          f"finite samples at {wav_sr} Hz ({N / sr:.3f} s), within one PCM "
+          f"step of synthesize()'s audio; against the native oracle "
+          f"(gold_dsp_chain, {len(gold)} samples): spectral error "
+          f"{spectral_db} dB, sample error {sample_db} dB, "
+          f"pass_spectral_minus60 {pass_spectral_minus60}; against the kcar "
+          f"route (exact_carrier='kernel', S=1, launches fused_synth) "
+          f"max-abs {kcar_err} (atol {KCAR_ATOL}), whose own spectral error "
+          f"is {kcar_db} dB; REPL: interactive.main fed 'hello' on the "
+          f"card, launches {repl_counts}, {len(repl)} finite samples", 
+          flush=True)
+    print(f"[14 timing] synthesize(<{N / sr:.3f} s>), host clock with a "
+          f"final synchronize, median of {REPS}: track route {e2e_warm_ms} "
+          f"ms with the pre-pass memoized (warm), {e2e_cold_ms} ms with the "
+          f"memo emptied before each run (cold: the pre-pass runs), "
+          f"{N / sr / (e2e_cold_ms / 1e3)} x realtime cold; kcar route "
+          f"(unsplit) {e2e_kcar_ms} ms; of it the host frontend (text -> "
+          f"score) {front_ms} ms; card {card}", flush=True)
+    return dict(launches=counts["fused_synth_track"], max_abs=max_abs,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, bound=bnd,
+                shape=[S, Text], program_ms=program_ms, kcar_ms=kcar_ms,
+                T_kcar=T1, spectral_db=spectral_db,
+                pass_spectral_minus60=pass_spectral_minus60)
 
 
 def core_check(label, setup, lanes, T, card):
@@ -720,8 +1082,7 @@ def core_check(label, setup, lanes, T, card):
           f"{n_check} blocks with the state carried: audio and final lp, b, "
           f"c bit-equal to the plain version; kernel {ms} ms per block "
           f"(median of {REPS}); plain PyTorch {plain_ms} ms per block (one "
-          f"run); bound "
-          f"{bnd[0]} ms ({bnd[1]}); card {card}", flush=True)
+          f"run); bound {bound_text(bnd)}; card {card}", flush=True)
     return out
 
 
@@ -779,7 +1140,7 @@ def split_inputs(papi, kf, batch, T, S, dev):
     inc = batch.v0.jitter_frequency
     tables = batch.tables(T, dev)
     pre, _ = papi._split_sched(inc, T, S, dev)
-    tables_t, (phi, cell), state, q, g0 = papi._split_lanes(
+    tables_t, (phi, cell), state, q, g0, _ = papi._split_lanes(
         tables, T, S, "kernel", inc)
     sf, si = kf.state_rows(state, q)
     return {"tables": tables, "pre": pre, "g0": g0,
@@ -968,7 +1329,8 @@ def serving(card, dev, drive):
         row = dict(
             E=E, cells=ins["lat"][0].shape[1], feed_ms=feed_ms,
             first_tick_ms=first_ms, kernel_ms=kern_ms, plain_ms=plain_ms,
-            bound_ms=bnd[0], bound_by=bnd[1], bound_bytes=tick_b,
+            bound_ms=bnd[0], bound_by=bnd[1], bound_measured_ms=bnd[2],
+            bound_bytes=tick_b,
             prepare_fast_ms=fast_ms,
             prepare_full_ms=full_ms, prepare_feed_scatter_ms=scatter_ms,
             read_block_ms=tick_ms, pipelined_period_ms=pipe_ms,
@@ -988,7 +1350,7 @@ def serving(card, dev, drive):
               f"{feed_ms} ms, first tick (all scores built and uploaded) "
               f"{first_ms} ms; carry kernel {kern_ms} ms per tick (CUDA "
               f"events, median of {REPS}), plain PyTorch {plain_ms} ms (one "
-              f"run), bound {bnd[0]} ms ({bnd[1]}; the tick's bytes "
+              f"run), bound {bound_text(bnd)} (the tick's bytes "
               f"{tick_b}); _prepare_tick fast path "
               f"{fast_ms} ms, full pass {full_ms} ms, full pass with one "
               f"session fed (score rows scattered) {scatter_ms} ms; "
@@ -1094,7 +1456,7 @@ def scaling(texts, batch, T, card, zero_state, dev):
         lambda: [g.text_to_phoneme_elems(t) for t in texts])
     out["score_from_phoneme_elems_ms"] = host_ms(
         lambda: [score_from_phoneme_elems(p, voice) for p in pelems])
-    print(f"[12 scaling] fused_synth unsplit T={T} q32 kernel ms by B "
+    print(f"[scaling] fused_synth unsplit T={T} q32 kernel ms by B "
           f"{out['kernel_ms_by_B']}; kcar at B={B} "
           f"{out['kernel_ms_kcar_B64']} ms (CUDA events, median of {REPS}); "
           f"slots {out['slots']}; route's (S, T) {out['choose_split']}; "
@@ -1103,7 +1465,7 @@ def scaling(texts, batch, T, card, zero_state, dev):
           f"text_to_phoneme_elems {out['text_to_phoneme_elems_ms']} ms, "
           f"score_from_phoneme_elems {out['score_from_phoneme_elems_ms']} "
           f"ms; card {card}", flush=True)
-    print(f"[12 scaling] core backend: at most {out['core_max_lanes']} "
+    print(f"[scaling] core backend: at most {out['core_max_lanes']} "
           f"lanes; route's "
           f"(S, T) {out['core_choose_split']}; by S (B=64 texts; B=1 "
           f"{SOLO_TEXT!r}) {json.dumps(out['core_ms_by_S'])}; card {card}",

@@ -32,13 +32,21 @@ S from the card's resident-block capacity. The core backend splits the
 same way (`_core_split_program`, the counterpart of _synth_jit_split), with
 a plain PyTorch pre-pass that integrates the Q32 phase of expand_frequency's
 stream, and S from the core kernel's own lane capacity. On the CPU the route
-stays unsplit; the split is reached there through `_synthesize_split`. Host
-carrier tracks, streaming and the CLI are later slices; this API has no
-argument for them.
+stays unsplit; the split is reached there through `_synthesize_split`.
+
+The solo long-form route: for one utterance past EXACT_CARRIER_AUTO_SECONDS
+(or with exact_carrier=True) `synthesize`/`synthesize_batch` run the native
+carrier pre-pass on the host (`_carrier_track_for`: the reference's f32
+phase recurrence per sample, oracle/native.py) and hand the track to the
+fused kernel's 'host_track' mode. The track gives every segment its exact
+phase, so this route keeps the split (`_split_carrier`), launches no Q32
+pre-pass, and uploads the track once.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -60,7 +68,7 @@ from .synth.score import Score, pad_score, score_from_phoneme_elems, stack_score
 from .text.intonate import intonate
 from .text.language import Language
 from .text.transcribe import transcribe
-from .voices import Voice, get_voice
+from .voices import Voice, get_spec, get_voice
 
 BLOCK_SIZE = 4096   # utterance lengths pad to a multiple of this
 WARMUP = 4096       # overlap-save pre-roll (the IIRs forget in ~200 samples)
@@ -71,8 +79,9 @@ MAX_SPLIT = 128     # largest segment count choose_split considers
 # duration, so past 30 s the exact f32 carrier runs in the kernel.
 EXACT_CARRIER_AUTO_SECONDS = 30.0
 
-# 'kernel' is kept as another name for True, so that calls written for
-# grail_tpu (whose host-track modes this port does not have) run unchanged
+# True: the exact carrier, from a host track where there is one (one
+# utterance, fused backend), else stepped in the kernel; 'kernel' pins the
+# in-kernel recurrence
 _EXACT_CARRIER_CHOICES = (None, True, False, "kernel")
 
 # backend names -> the program; 'pallas' is another name for 'core', as
@@ -167,21 +176,29 @@ def choose_split(B: int, maxN: int, slots: int):
 
 
 def route(B: int, maxN: int, exact_carrier, device,
-          sample_rate: float, backend: str = "fused"):
+          sample_rate: float, backend: str = "fused", track: bool = False):
     """The one routing decision: (implementation, carrier mode, S, T),
     which synthesize_scores runs as they are, for `backend` 'fused' or
     'core' ('pallas').
 
     implementation: 'kernel' (the CUDA kernels, device 'cuda') or 'plain'
     (their PyTorch versions, device 'cpu'); a CUDA device without CUDA
-    raises. carrier mode: 'kcar' (the reference's exact f32 recurrence, in
-    the kernel) for exact_carrier True or 'kernel', and for exact_carrier
-    None when the longest utterance (maxN samples at sample_rate) exceeds
-    EXACT_CARRIER_AUTO_SECONDS; 'q32' (fixed point) otherwise.
-    S, T: the overlap-save split and the padded length, from choose_split
-    with the card's resident-block capacity on 'cuda'. On 'cpu' (slots = 1)
-    and with 'kcar' (the split cannot seed segment-boundary f32 phases)
-    S = 1, T = round_up(maxN, BLOCK_SIZE).
+    raises. carrier mode, as in grail_tpu's synthesize_scores:
+      * 'track' (the reference's exact f32 phase, read from a host-built
+        track) when the caller holds one (`track=True`) for a single
+        utterance on the fused backend; a track takes precedence over
+        exact_carrier, as in grail_tpu;
+      * 'kcar' (the same recurrence, stepped in the kernel) without a track
+        for exact_carrier True or 'kernel', and for exact_carrier None when
+        the longest utterance (maxN samples at sample_rate) exceeds
+        EXACT_CARRIER_AUTO_SECONDS;
+      * 'q32' (fixed point) otherwise.
+    A track does not apply to B > 1 or to the core backend: the returned
+    mode says what will run. S, T: the overlap-save split and the padded
+    length, from choose_split with the card's resident-block capacity on
+    'cuda'; 'track' keeps the split (the track holds every segment's exact
+    phase). On 'cpu' (slots = 1) and with 'kcar' (the split cannot seed
+    segment-boundary f32 phases) S = 1, T = round_up(maxN, BLOCK_SIZE).
 
     The core backend has the Q32 carrier only, as in grail_tpu: with it
     exact_carrier True or 'kernel' raises ValueError, and None stays Q32 at
@@ -202,11 +219,13 @@ def route(B: int, maxN: int, exact_carrier, device,
                 "the core backend has the Q32 carrier only")
         slots = CORE_MAX_LANES if impl == "kernel" else 1
         return (impl, "q32") + choose_split(B, maxN, slots)
+    slots = fused_synth_slots(dev) if impl == "kernel" else 1
+    if track and B == 1:
+        return (impl, "track") + choose_split(B, maxN, slots)
     if exact_carrier in (True, "kernel") or (
             exact_carrier is None
             and maxN > EXACT_CARRIER_AUTO_SECONDS * float(sample_rate)):
         return impl, "kcar", 1, _round_up(max(maxN, 1), BLOCK_SIZE)
-    slots = fused_synth_slots(dev) if impl == "kernel" else 1
     return (impl, "q32") + choose_split(B, maxN, slots)
 
 
@@ -262,6 +281,101 @@ def _score_num_samples(score: Score, sample_rate: float) -> int:
     return int(np.floor(np.float32(C[-1]) * np.float32(sample_rate)))
 
 
+def _spec_for_voice(v: Voice):
+    """The registered VoiceSpec behind a compiled Voice (by name,
+    retargeted to the voice's sample rate), or None when the voice is not
+    a registered preset (a voice file): the native pre-pass needs the spec,
+    so such a voice has no host track."""
+    try:
+        spec = get_spec(v.name)
+    except KeyError:
+        return None
+    if float(spec.sample_rate) != float(v.sample_rate):
+        spec = dataclasses.replace(spec, sample_rate=float(v.sample_rate))
+    return spec
+
+
+def _wants_exact_carrier(pelems) -> bool:
+    return (sum(float(p.length) for p in pelems)
+            > EXACT_CARRIER_AUTO_SECONDS)
+
+
+_carrier_cache = {}
+
+
+def _carrier_track_for(pelems, v: Voice, seed: int) -> Optional[np.ndarray]:
+    """Host pre-pass: the reference's exact f32 carrier phase per sample for
+    this utterance (oracle/native.native_carrier_phase_track), memoized over
+    the last 32 utterances. None only when the voice has no registered spec
+    (`_spec_for_voice`); the caller then gets the in-kernel recurrence, and
+    `route` says so. The host library is built at first use; a failed build
+    raises."""
+    from .oracle.native import native_carrier_phase_track
+
+    spec = _spec_for_voice(v)
+    if spec is None:
+        return None
+    key_parts = [f"{p.phoneme.value}:{p.length!r}:{p.blend_length!r}:"
+                 f"{p.frequency!r}" for p in pelems]
+    key_parts.append(f"{spec.name}:{spec.sample_rate}:{int(seed)}")
+    key = hashlib.sha256("|".join(key_parts).encode()).hexdigest()
+    hit = _carrier_cache.get(key)
+    if hit is not None:
+        return hit
+    track = native_carrier_phase_track(pelems, spec, jitter_seed=int(seed))
+    if len(_carrier_cache) >= 32:
+        _carrier_cache.clear()
+    _carrier_cache[key] = track
+    return track
+
+
+def _carrier_window(track, T: int, pre: int, device) -> torch.Tensor:
+    """`pre` pre-roll phases, then the track edge-padded to T samples, as
+    one f32 tensor [pre + T] on `device` (index j <-> absolute sample
+    j - pre + 1). The oracle's sample count can differ from the score's by
+    a few samples; the tail past the track is invalid (its output is
+    zeroed), so its phase only needs to be finite. A track longer than T
+    raises. The pre-roll is the phase cycle {0, .25, .5, .75} of silence
+    (f = 0.25 exactly) from phase 0, aligned so that it returns to 0 at
+    absolute sample 1 (`pre` % 4 == 0): what the Q32 split's segment 0
+    renders before the stream. On a CUDA device the window is assembled in
+    pinned memory and uploaded once."""
+    t = np.asarray(track, np.float32).reshape(-1)
+    if len(t) > T:
+        raise ValueError(f"carrier track of {len(t)} samples exceeds the "
+                         f"padded length {T}")
+    if pre % 4:
+        raise ValueError(f"pre-roll {pre} must be a multiple of 4")
+    dev = torch.device(device)
+    host = torch.empty(pre + T, dtype=torch.float32,
+                       pin_memory=dev.type == "cuda")
+    w = host.numpy()
+    w[:pre] = (np.arange(pre, dtype=np.int64) % 4).astype(np.float32) * 0.25
+    w[pre:pre + len(t)] = t
+    w[pre + len(t):] = t[-1] if len(t) else 0.0
+    return host.to(dev, non_blocking=True)
+
+
+def _pad_track(track, T: int, device) -> torch.Tensor:
+    """A carrier track edge-padded to T samples, on `device` (the unsplit
+    route's)."""
+    return _carrier_window(track, T, 0, device)
+
+
+def _split_carrier(track, T: int, S: int, device) -> torch.Tensor:
+    """Per-segment carrier windows [S, T/S + WARMUP] for the overlap-save
+    split: row s covers absolute samples s*Ts - W + 1 .. (s+1)*Ts, so index
+    j of row s is absolute sample s*Ts + j - W + 1. The rows are overlapping
+    views (row stride Ts) of one window of W + T floats, as the schedule's
+    rows are (`_split_sched`): the track is uploaded once and never tiled
+    to the S*B lanes. Segment 0's pre-roll lies before the stream: see
+    `_carrier_window`; the first real sample reads track[0], the
+    reference's initial phase 0."""
+    Ts = T // S
+    return _carrier_window(track, T, WARMUP, device).unfold(
+        0, Ts + WARMUP, Ts)
+
+
 def _segments(T: int, S: int):
     """The split's segments: (g0, seed), one int each per segment. Segment
     s renders absolute samples g0 + 1 .. g0 + T/S + WARMUP, g0 = s*T/S - W;
@@ -307,24 +421,32 @@ def _split_sched(inc, T: int, S: int, device):
             (phi.unfold(0, Ts + W, Ts), cell.unfold(0, Ts + W, Ts)))
 
 
-def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc):
+def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc,
+                 track=None):
     """The fused synthesizer's inputs for the split of B utterances of T
     samples (T % (S * BLOCK_SIZE) == 0) into S*B lanes of Ts + W samples:
     (tables tiled s-major, segment schedule rows (phi, cell) [S, Ts + W],
     initial SynthState (zero filters, skip-ahead seeds), exact Q32 phases
-    [S*B], g0 [S*B]). The pre-pass (`impl`) integrates the Q32 phase to
-    every block boundary; segment 0 starts at phase 0."""
+    [S*B], g0 [S*B], carrier rows [S, Ts + W] or None). The pre-pass
+    (`impl`) integrates the Q32 phase to every block boundary; segment 0
+    starts at phase 0. With a carrier `track` (one utterance) the segments
+    read their phases from it (`_split_carrier`): the pre-pass is not
+    launched and the Q32 phases are zero."""
     if S < 2 or T % (S * BLOCK_SIZE):
         raise ValueError(f"need S >= 2 and T % (S*{BLOCK_SIZE}) == 0, got "
                          f"S={S}, T={T}")
     B = tables.n.shape[0]
     pre, seg = _split_sched(inc, T, S, tables.n.device)
     g0, seed_lane, tables_t, g0_lane = _split_lane_setup(tables, T, S)
+    state = SynthState.init(S * B, tables.n.device)._replace(seed=seed_lane)
+    if track is not None:
+        car = _split_carrier(track, T, S, tables.n.device)
+        q = torch.zeros(S * B, dtype=torch.int64, device=tables.n.device)
+        return tables_t, seg, state, q, g0_lane, car
     q_at_block = phase_q32_pre_block(tables, pre, T, BLOCK_SIZE, impl)
     q_seg = q_at_block[[max(g, 0) // BLOCK_SIZE for g in g0]]  # [S, B]
     q_seg[0] = 0
-    state = SynthState.init(S * B, tables.n.device)._replace(seed=seed_lane)
-    return tables_t, seg, state, q_seg.reshape(S * B), g0_lane
+    return tables_t, seg, state, q_seg.reshape(S * B), g0_lane, None
 
 
 def _reassemble(full: torch.Tensor, B: int, T: int, S: int) -> torch.Tensor:
@@ -335,13 +457,14 @@ def _reassemble(full: torch.Tensor, B: int, T: int, S: int) -> torch.Tensor:
 
 
 def _split_program(tables: FusedTables, T: int, S: int, impl: str,
-                   inc) -> torch.Tensor:
+                   inc, track=None) -> torch.Tensor:
     """Overlap-save split over B utterances of T samples: the fused
     synthesizer over the S*B lanes of `_split_lanes`, reassembled.
     Returns audio [B, T]."""
-    tables_t, seg, state, q, g0 = _split_lanes(tables, T, S, impl, inc)
+    tables_t, seg, state, q, g0, car = _split_lanes(tables, T, S, impl, inc,
+                                                    track)
     full, _ = synth_fused(tables_t, T // S + WARMUP, impl, state=state,
-                          sched=seg, phase_q32=q, g0=g0)
+                          sched=seg, phase_q32=q, g0=g0, carrier=car)
     return _reassemble(full, tables.n.shape[0], T, S)
 
 
@@ -556,8 +679,13 @@ class _Batch:
                           tuple(delta(x) for x in jparams[1:]))
 
     def run(self, impl: str, carrier: str, S: int, T: int, dev,
-            backend: str = "fused") -> List[torch.Tensor]:
-        """Synthesize; one tensor per utterance, sliced to its length."""
+            backend: str = "fused", track=None) -> List[torch.Tensor]:
+        """Synthesize; one tensor per utterance, sliced to its length.
+        `track` is the host carrier track that the carrier mode 'track'
+        reads (one utterance, fused backend)."""
+        if (carrier == "track") != (track is not None):
+            raise ValueError(f"carrier mode {carrier!r} with"
+                             f"{'out' if track is None else ''} a track")
         inc = self.v0.jitter_frequency
         if backend == "core":
             lanes = self.core_lanes(T, dev)
@@ -568,18 +696,35 @@ class _Batch:
             return [audio[i, :n] for i, n in enumerate(self.Ns)]
         tables = self.tables(T, dev)
         if S > 1:
-            audio = _split_program(tables, T, S, impl, inc)
+            audio = _split_program(tables, T, S, impl, inc, track)
         else:
+            car = None if track is None else _pad_track(track, T, dev)
             audio, _ = synth_fused(tables, T, impl,
                                    sched=device_window(inc, 0, T, dev),
-                                   exact_carrier=carrier == "kcar")
+                                   exact_carrier=carrier == "kcar",
+                                   carrier=car)
         return [audio[i, :n] for i, n in enumerate(self.Ns)]
+
+
+def _applicable_track(carrier_tracks, B: int, backend: str):
+    """The host carrier track that applies, or None: a track is read for
+    one utterance on the fused backend (per-lane tracks for a batch would
+    cost a host pre-pass and an upload per lane)."""
+    if carrier_tracks is None or B != 1 or _check_backend(backend) != "fused":
+        return None
+    if len(carrier_tracks) != B:
+        raise ValueError(f"{len(carrier_tracks)} carrier tracks for {B} "
+                         "utterances")
+    return carrier_tracks[0]
 
 
 def _synthesize_split(scores: Sequence[Score], voice="generic",
                       seeds: Optional[Sequence[int]] = None, S: int = 2,
-                      device="cuda", backend="fused") -> List[torch.Tensor]:
-    """The overlap-save split route at a given S >= 2 (Q32 carrier), with
+                      device="cuda", backend="fused",
+                      carrier_tracks: Optional[Sequence] = None
+                      ) -> List[torch.Tensor]:
+    """The overlap-save split route at a given S >= 2 (Q32 carrier, or the
+    host track of `carrier_tracks` for one utterance), with
     T = round_up(maxN, S * BLOCK_SIZE): what synthesize_scores runs when
     route picks S, reachable here at any S and on the CPU too (the tests
     and chip_smoke.py use it). Same arguments and outputs as
@@ -588,16 +733,20 @@ def _synthesize_split(scores: Sequence[Score], voice="generic",
     if not scores:
         return []
     b = _Batch(scores, voice, seeds)
-    impl = route(b.B, max(b.Ns), False, device, b.sr, backend)[0]
+    track = _applicable_track(carrier_tracks, b.B, backend)
+    impl, carrier = route(b.B, max(b.Ns), False, device, b.sr, backend,
+                          track=track is not None)[:2]
     T = _round_up(max(max(b.Ns), 1), S * BLOCK_SIZE)
-    return b.run(impl, "q32", S, T, torch.device(device),
-                 _check_backend(backend))
+    return b.run(impl, carrier, S, T, torch.device(device),
+                 _check_backend(backend), track)
 
 
 def synthesize_scores(scores: Sequence[Score], voice="generic",
                       seeds: Optional[Sequence[int]] = None,
                       exact_carrier=None, device="cuda",
-                      backend="fused") -> List[torch.Tensor]:
+                      backend="fused",
+                      carrier_tracks: Optional[Sequence] = None
+                      ) -> List[torch.Tensor]:
     """Synthesize prepared per-utterance Scores in one synthesizer program.
 
     `voice` is one voice/name or one per score (shared sample rate and
@@ -605,15 +754,20 @@ def synthesize_scores(scores: Sequence[Score], voice="generic",
     shared element count and length; the outputs are float32 tensors on
     `device`, sliced to each utterance's true length. `backend` is 'fused'
     (default), 'core' or its other name 'pallas' (see the module doc);
-    `exact_carrier` and the overlap-save split: see `route`."""
+    `exact_carrier` and the overlap-save split: see `route`.
+    `carrier_tracks` (one per score, entries may be None): exact f32
+    carrier phase tracks (oracle/native.native_carrier_phase_track), read
+    for one utterance on the fused backend, where a track takes precedence
+    over `exact_carrier` and keeps the split."""
     scores = list(scores)
     if not scores:
         return []
     b = _Batch(scores, voice, seeds)
+    track = _applicable_track(carrier_tracks, b.B, backend)
     impl, carrier, S, T = route(b.B, max(b.Ns), exact_carrier, device, b.sr,
-                                backend)
+                                backend, track=track is not None)
     return b.run(impl, carrier, S, T, torch.device(device),
-                 _check_backend(backend))
+                 _check_backend(backend), track)
 
 
 def synthesize_batch(texts: Sequence[str], voice="generic",
@@ -629,12 +783,16 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
     `voice` and `language` take one value or one per text (mixed voices
     and languages batch freely; voices must share sample rate and jitter
     rate). A `sample_rate` other than the voice's retargets the voice
-    first (reference resampling, src/lib.rs:418-440). `exact_carrier`:
-    None (auto: exact f32 carrier past EXACT_CARRIER_AUTO_SECONDS), True
-    (exact f32 carrier in the kernel; 'kernel' is another name for it),
-    False (Q32 carrier). `backend`: 'fused' (default) or 'core' ('pallas'),
-    the round-1 program, which has the Q32 carrier only (exact_carrier
-    True raises; None stays Q32)."""
+    first (reference resampling, src/lib.rs:418-440). `exact_carrier`, as
+    in grail_tpu: None (auto: the reference's exact f32 carrier for
+    utterances past EXACT_CARRIER_AUTO_SECONDS: the host track of the
+    native pre-pass for one utterance of a registered voice, which keeps
+    the split; the in-kernel recurrence, unsplit, for a batch or a voice
+    file), True (the exact carrier at any length, by the same rule),
+    'kernel' (pin the in-kernel recurrence), False (Q32 carrier).
+    `backend`: 'fused' (default) or 'core' ('pallas'), the round-1 program,
+    which has the Q32 carrier only (exact_carrier True raises; None stays
+    Q32)."""
     if isinstance(texts, str):
         raise TypeError(
             "texts must be a sequence of strings, not a single string — "
@@ -657,20 +815,70 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
     _resolve_device(device)    # fail before the host frontend runs
     _check_backend(backend)
 
-    scores = [score_from_phoneme_elems(
-        text_to_phoneme_elems(t, v, lng, contour=contour,
-                              speaking_rate=speaking_rate), v)
-        for t, v, lng in zip(texts, voices, languages_)]
+    pelems_all = [text_to_phoneme_elems(t, v, lng, contour=contour,
+                                        speaking_rate=speaking_rate)
+                  for t, v, lng in zip(texts, voices, languages_)]
+    scores = [score_from_phoneme_elems(p, v)
+              for p, v in zip(pelems_all, voices)]
+    tracks = None
+    if B == 1:
+        tracks = [_solo_carrier_track(pelems_all[0], voices[0], seeds[0],
+                                      exact_carrier, backend)]
     return synthesize_scores(scores, voices, seeds=seeds,
                              exact_carrier=exact_carrier, device=device,
-                             backend=backend)
+                             backend=backend, carrier_tracks=tracks)
+
+
+def _solo_carrier_track(pelems, v: Voice, seed: int, exact_carrier,
+                        backend: str) -> Optional[np.ndarray]:
+    """The host carrier track of a solo utterance, where the caller's
+    `exact_carrier` asks for one (True, or None past
+    EXACT_CARRIER_AUTO_SECONDS) on the fused backend; None otherwise, and
+    for a voice without a registered spec."""
+    if _check_backend(backend) != "fused" or exact_carrier == "kernel":
+        return None
+    if exact_carrier or (exact_carrier is None
+                         and _wants_exact_carrier(pelems)):
+        return _carrier_track_for(pelems, v, seed)
+    return None
+
+
+def synthesize_score(score: Score, voice, seed: int = 0,
+                     sample_rate: Optional[float] = None,
+                     backend: str = "fused",
+                     carrier_track: Optional[np.ndarray] = None,
+                     exact_carrier=None, device="cuda") -> torch.Tensor:
+    """Synthesize one prepared Score to a float32 waveform tensor:
+    synthesize_scores with B = 1, the solo route (the counterpart of
+    grail_tpu's synthesize_score on its kernel backends).
+
+    `carrier_track` (optional f32 [<= T]): the reference's exact
+    per-sample carrier phase (oracle/native.native_carrier_phase_track);
+    on the fused backend it replaces the carrier accumulator and keeps the
+    split. `synthesize` computes it for long utterances. A `sample_rate`
+    other than the voice's raises: resample the voice first
+    (voice.resampled(sr), as synthesize does)."""
+    v = _resolve_voice(voice)
+    if sample_rate and float(sample_rate) != float(v.sample_rate):
+        raise ValueError(
+            f"sample_rate {float(sample_rate)} differs from the voice's "
+            f"({float(v.sample_rate)}); resample the voice first "
+            "(voice.resampled(sr), as synthesize() does)")
+    return synthesize_scores([score], v, seeds=[seed],
+                             exact_carrier=exact_carrier, device=device,
+                             backend=backend,
+                             carrier_tracks=[carrier_track])[0]
 
 
 def synthesize(text: str, voice="generic", language="generic", seed: int = 0,
                contour: bool = False, speaking_rate: float = 1.0,
                sample_rate: Optional[float] = None, exact_carrier=None,
                device="cuda", backend="fused") -> torch.Tensor:
-    """Text -> float32 waveform tensor: synthesize_batch([text])[0]."""
+    """Text -> float32 waveform tensor (the reference CLI chain, one
+    utterance): synthesize_batch of one text, which runs the host frontend,
+    the carrier pre-pass where `exact_carrier` asks for it, and the solo
+    route. A `sample_rate` other than the voice's retargets the voice
+    first."""
     return synthesize_batch([text], voice, language, seeds=[seed],
                             contour=contour, speaking_rate=speaking_rate,
                             sample_rate=sample_rate,
@@ -679,5 +887,6 @@ def synthesize(text: str, voice="generic", language="generic", seed: int = 0,
 
 
 __all__ = ["route", "choose_split", "text_to_phoneme_elems", "text_to_score",
-           "synthesize_scores", "synthesize_batch", "synthesize",
+           "synthesize_scores", "synthesize_batch", "synthesize_score",
+           "synthesize",
            "EXACT_CARRIER_AUTO_SECONDS", "BLOCK_SIZE", "WARMUP", "MAX_SPLIT"]

@@ -12,6 +12,8 @@ C++.
 
 from __future__ import annotations
 
+import numpy as np
+
 
 def tan_approx(x):
     """Approximation of tan(pi * x), accurate for x in [0, 0.5): the
@@ -44,4 +46,23 @@ def exp_approx(x):
     return o2 * o2 * o
 
 
-__all__ = ["tan_approx", "tan_approx_parts", "exp_approx"]
+def np_tan_approx(x):
+    """tan_approx in numpy float32, the same operation order (the oracle's)."""
+    x = np.asarray(x, np.float32)
+    half = np.float32(0.5)
+    one = np.float32(1.0)
+    num = (one - x) * x * (np.float32(5.0) - np.float32(4.0) * (x + half) * (half - x))
+    den = (x + half) * (np.float32(5.0) - np.float32(4.0) * (one - x) * x) * (half - x)
+    return (num / den).astype(np.float32)
+
+
+def np_exp_approx(x):
+    """exp_approx in numpy float32 (the oracle's)."""
+    x = np.asarray(x, np.float32)
+    o = (np.float32(1.0) - x).astype(np.float32)
+    o2 = (o * o).astype(np.float32)
+    return (o2 * o2 * o).astype(np.float32)
+
+
+__all__ = ["tan_approx", "tan_approx_parts", "exp_approx",
+           "np_tan_approx", "np_exp_approx"]

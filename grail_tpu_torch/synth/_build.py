@@ -40,10 +40,11 @@ build_info = {"seconds": None, "log": "", "path": None}
 
 # launches of the library's kernels, counted by each wrapper where it
 # launches its kernel and nowhere else (fused_synth.cu's carry mode, the
-# serving tick, has a count of its own); callers that must show a path went
-# through the kernels set the counts to 0 before it and read them after
-LAUNCHES = {"fused_synth": 0, "fused_synth_carry": 0, "phase_q32_pre": 0,
-            "synth_core": 0}
+# serving tick, and its host_track mode, the solo long-form route, have
+# counts of their own); callers that must show a path went through the
+# kernels set the counts to 0 before it and read them after
+LAUNCHES = {"fused_synth": 0, "fused_synth_carry": 0, "fused_synth_track": 0,
+            "phase_q32_pre": 0, "synth_core": 0, "fma_peak": 0}
 
 
 def _nvcc() -> str:
@@ -54,7 +55,7 @@ def _nvcc() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.grail_fused_synth.argtypes = ([p] * 17 + [i] * 8 + [ctypes.c_float]
+    lib.grail_fused_synth.argtypes = ([p] * 18 + [i] * 8 + [ctypes.c_float]
                                       + [p])
     lib.grail_fused_synth.restype = i
     lib.grail_fused_synth_chunk.argtypes = []
@@ -67,6 +68,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.grail_phase_q32_pre_chunk.restype = i
     lib.grail_synth_core.argtypes = [p] * 14 + [i] * 2 + [p]
     lib.grail_synth_core.restype = i
+    lib.grail_fma_peak.argtypes = ([p] * 2 + [i] * 3 + [ctypes.c_float] * 2
+                                   + [i, p])
+    lib.grail_fma_peak.restype = i
+    lib.grail_fma_peak_block.argtypes = []
+    lib.grail_fma_peak_block.restype = i
     lib.grail_cuda_error_string.argtypes = [i]
     lib.grail_cuda_error_string.restype = ctypes.c_char_p
     return lib

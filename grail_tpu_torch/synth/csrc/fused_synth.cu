@@ -2,8 +2,10 @@
 //
 // Replaces grail_tpu/synth/kernel_fused.py::_fused_kernel (the Pallas TPU
 // kernel behind synth_fused_pallas) in its 'host' mode, with the Q32
-// fixed-point carrier or the in-kernel exact f32 carrier (kcar), and in its
-// 'carry' mode (jcarry: the serving tick of runtime/stream.py). Per sample
+// fixed-point carrier or the in-kernel exact f32 carrier (kcar), in its
+// 'host_track' mode (car: the carrier phase read from a host-built track),
+// and in its 'carry' mode (jcarry: the serving tick of runtime/stream.py).
+// Per sample
 // it runs the whole reference chain: element index by boundary count, the
 // cur/next rows, blend alpha and the 4-case pick; value-noise jitter from
 // the shared exact (phi, cell) schedule; the carrier phase; polyBLEP saw;
@@ -12,6 +14,16 @@
 // lane may start at a sample offset g0 and read its own row of the
 // schedule: the overlap-save split runs S time segments of each utterance
 // as S lanes (s-major), seeded with exact phases by phase_q32_pre.cu.
+//
+// In 'host_track' mode (car != null) the per-sample carrier phase is not
+// integrated here at all: it is the reference's own f32 recurrence, run once
+// on the host over the whole utterance (the native pre-pass), and each lane
+// reads its window of that track, addressed exactly as the schedule is (row
+// b / lanes_per_row, row_stride apart). A track gives every segment of the
+// split its exact phase, which the kcar recurrence cannot (it has no seam
+// value to start from), so the solo long-form route keeps the split and
+// fills the card. Neither the Q32 warp scan nor the kcar loop runs, and the
+// carried Q32 and f32 phases pass through unchanged.
 //
 // In 'carry' mode no schedule is read: each lane carries its jitter phase
 // and absolute lattice cell in si columns 3-4, and per chunk one thread
@@ -97,6 +109,7 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
                    const uint32_t* __restrict__ leh,
                    const float* __restrict__ phi,
                    const int* __restrict__ cell,
+                   const float* __restrict__ car,
                    const int* __restrict__ g0,
                    const int* __restrict__ lat_base,
                    const float* __restrict__ sf_in,
@@ -132,8 +145,7 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   // mode reads no schedule
   const int off = g0 ? g0[b] : 0;
   const int lb = lat_base ? lat_base[b] : 0;
-  const float* phib = phi + (size_t)(b / lanes_per_row) * row_stride;
-  const int* cellb = cell + (size_t)(b / lanes_per_row) * row_stride;
+  const size_t row = (size_t)(b / lanes_per_row) * row_stride;
   // Lehmer: sample t of a chunk has state A^(t+1)*seed + S_(t+1), where
   // seed is the previous chunk's last state
   const uint32_t leh_a = leh[t], leh_s = leh[CHUNK + t];
@@ -179,8 +191,8 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
       ph = s_jphi[t];
       cl_in = s_jcell[t] - lb;   // the window's row; seq_freq clamps it
     } else {
-      ph = phib[k];
-      cl_in = cellb[k];
+      ph = phi[row + k];
+      cl_in = cell[row + k];
     }
 
     // ---- A-B: sequencer pick and pitch jitter (seq_freq.cuh) ------------
@@ -193,7 +205,9 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
 
     // ---- C: carrier phase (pre-update) --------------------------------
     float phase;
-    if (kcar) {
+    if (car) {
+      phase = car[row + k];
+    } else if (kcar) {
       s_car[t] = freq_j;
       __syncthreads();
       if (t == 0) {
@@ -323,7 +337,7 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   }
   if (t == 0) {
     int* sob = si_out + (size_t)b * si_cols;
-    sob[0] = kcar ? sib[0] : (int)q32;
+    sob[0] = (kcar || car) ? sib[0] : (int)q32;
     sob[1] = (int)seed;
     sob[2] = kcar ? __float_as_int(kphase) : sib[2];
     if (jcarry) {
@@ -338,18 +352,21 @@ extern "C" {
 // Launches one block per lane on `stream`; returns cudaGetLastError().
 // phi/cell hold B / lanes_per_row rows of T samples, row_stride apart (rows
 // may overlap, as the split's segment windows do); g0 may be null (all 0).
+// car, when not null, is the carrier phase track, laid out as phi is (the
+// host_track mode; not with kcar or jcarry, which the wrapper refuses).
 // jcarry = 1: the carry mode; phi/cell are not read, si has 5 columns (3
 // otherwise), inc is the jitter rate and lat_base may be null (all 0).
 int grail_fused_synth(const int* n, const float* scal, const float* vec,
                       const float* latp, const float* latf, const float* lata,
                       const float* par, const uint32_t* leh, const float* phi,
-                      const int* cell, const int* g0, const int* lat_base,
-                      const float* sf_in, const int* si_in, float* audio,
+                      const int* cell, const float* car, const int* g0,
+                      const int* lat_base, const float* sf_in,
+                      const int* si_in, float* audio,
                       float* sf_out, int* si_out, int B, int E, int W, int T,
                       int lanes_per_row, int row_stride, int kcar, int jcarry,
                       float inc, void* stream) {
   fused_synth_kernel<<<B, CHUNK, 0, (cudaStream_t)stream>>>(
-      n, scal, vec, latp, latf, lata, par, leh, phi, cell, g0, lat_base,
+      n, scal, vec, latp, latf, lata, par, leh, phi, cell, car, g0, lat_base,
       sf_in, si_in, audio, sf_out, si_out, E, W, T, lanes_per_row, row_stride,
       kcar, jcarry, inc);
   return (int)cudaGetLastError();

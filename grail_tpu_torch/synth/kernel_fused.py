@@ -22,9 +22,17 @@ schedule. In 'carry' mode a lane's lattice holds a sliding window whose row
 0 is the absolute cell `lat_base`; cells read rows `cell - lat_base`,
 clamped to the window as the host mode's cells are.
 
+The carrier phase comes in one of three modes: the Q32 fixed-point
+accumulator, the reference's f32 recurrence stepped in the kernel (`kcar`),
+or, in the 'host_track' mode, a per-sample f32 track built on the host
+(`carrier`: the native pre-pass, oracle/native.py), laid out and addressed
+as the schedule is. A track gives every lane its exact phase at any offset,
+so the solo long-form route keeps the overlap-save split with it, which the
+in-kernel recurrence cannot (it has no phase to start a segment from).
+
 Two implementations with one signature, (tables, phi, cell, sf, si, T, kcar,
-g0, lat_base, inc) -> (audio [B, T], sf [B, 24], si [B, 3 or 5]); phi and
-cell are None in 'carry' mode:
+g0, lat_base, inc, carrier) -> (audio [B, T], sf [B, 24], si [B, 3 or 5]);
+phi and cell are None in 'carry' mode:
 
   * `synth_fused_reference` — plain PyTorch: A-C vectorized over [B, T],
     the Q32 carrier as an int64 cumsum, the f32 carrier and D as Python
@@ -291,16 +299,21 @@ def synth_fused_reference(tables: FusedTables, phi: Optional[torch.Tensor],
                           si: torch.Tensor, T: int, kcar: bool,
                           g0: Optional[torch.Tensor] = None,
                           lat_base: Optional[torch.Tensor] = None,
-                          inc: Optional[float] = None):
+                          inc: Optional[float] = None,
+                          carrier: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the fused kernel (see the module doc).
     `g0` (int32 [B] or None for zeros): each lane's sample offset, so lane b
     renders absolute samples g0[b] + 1 .. g0[b] + T. With phi and cell None
     it runs the 'carry' mode: the jitter rate `inc`, si [B, 5] with the
     carried jitter state in columns 3-4, and `lat_base` (int32 [B] or None
-    for zeros) the absolute cell of each lane's lattice row 0."""
+    for zeros) the absolute cell of each lane's lattice row 0. `carrier`
+    (f32, the schedule's shape: [T] or [Ss, >=T]) is the 'host_track' mode:
+    the per-sample carrier phase, read in place of both accumulators; the
+    Q32 and f32 phase columns of si then pass through unchanged."""
     dev = tables.n.device
     B = tables.n.shape[0]
     F = NUM_FORMANTS
+    _check_carrier_mode(carrier, kcar, phi is None)
 
     jfinal = None
     if phi is None:
@@ -341,7 +354,9 @@ def synth_fused_reference(tables: FusedTables, phi: Optional[torch.Tensor],
 
     # ---- C: carrier, polyBLEP, noise, coefficients ---------------------
     si_out = si.clone()
-    if kcar:
+    if carrier is not None:
+        phase = _lane_rows(carrier, B, T)
+    elif kcar:
         phase, pf = f32_carrier(freq_j, si[:, 2].view(torch.float32))
         si_out[:, 2] = pf.view(torch.int32)
     else:
@@ -470,6 +485,17 @@ def _check_tables(tables: FusedTables, dev, W_min: int = 2):
     return B, E, W
 
 
+def _check_carrier_mode(carrier, kcar: bool, carry: bool):
+    """The host_track mode excludes the in-kernel carrier recurrence and the
+    carry mode: a track with either is a caller's error, raised before any
+    launch."""
+    if carrier is not None and (kcar or carry):
+        raise ValueError(
+            "a carrier track replaces the carrier accumulator: it cannot be "
+            "combined with the in-kernel exact carrier (kcar) or with the "
+            "carry mode (phi=cell=None)")
+
+
 def _check_sched(phi, cell, T: int, dev):
     """Check the kernel's schedule: contiguous [T], or [Ss, T] rows with unit
     sample stride that may overlap (the split's segment windows are strided
@@ -496,23 +522,27 @@ def fused_synth_cuda(tables: FusedTables, phi: Optional[torch.Tensor],
                      si: torch.Tensor, T: int, kcar: bool,
                      g0: Optional[torch.Tensor] = None,
                      lat_base: Optional[torch.Tensor] = None,
-                     inc: Optional[float] = None):
+                     inc: Optional[float] = None,
+                     carrier: Optional[torch.Tensor] = None):
     """Launch synth/csrc/fused_synth.cu on the current stream. (phi, cell)
     is [T] (shared by every lane) or [Ss, T] (one row per group of B // Ss
     s-major lanes; rows may be overlapping views, see _check_sched); `g0`
     int32 [B] or None, as in synth_fused_reference. With phi and cell None
     it launches the 'carry' mode (si [B, 5], `lat_base` int32 [B] or None,
-    the jitter rate `inc`), counted as LAUNCHES['fused_synth_carry']."""
+    the jitter rate `inc`), counted as LAUNCHES['fused_synth_carry']. With
+    `carrier` (f32, the shape and strides of phi) it launches the
+    'host_track' mode, counted as LAUNCHES['fused_synth_track']."""
     import ctypes
 
     from ._build import load_library
 
+    carry = phi is None
+    _check_carrier_mode(carrier, kcar, carry)
     dev = tables.n.device
     B, E, W = _check_tables(tables, dev)
     if T <= 0 or T % CHUNK:
         raise ValueError(f"T={T} must be a positive multiple of {CHUNK}")
     f32, i32 = torch.float32, torch.int32
-    carry = phi is None
     if carry:
         if cell is not None or inc is None:
             raise ValueError("the carry mode takes phi=cell=None and inc")
@@ -526,6 +556,14 @@ def fused_synth_cuda(tables: FusedTables, phi: Optional[torch.Tensor],
         Ss, row_stride = _check_sched(phi, cell, T, dev)
         if B % Ss:
             raise ValueError(f"{Ss} schedule rows for {B} lanes")
+        if carrier is not None:
+            if carrier.shape != phi.shape or carrier.stride() != phi.stride():
+                raise ValueError(
+                    f"carrier and phi differ in shape or strides: "
+                    f"{tuple(carrier.shape)}/{carrier.stride()} vs "
+                    f"{tuple(phi.shape)}/{phi.stride()}")
+            _check("carrier", carrier if carrier.dim() == 1 else carrier[0],
+                   f32, (T,), dev)
     _check("sf", sf, f32, (B, 3 * NUM_FORMANTS), dev)
     _check("si", si, i32, (B, 5 if carry else 3), dev)
     if g0 is not None:
@@ -546,11 +584,14 @@ def fused_synth_cuda(tables: FusedTables, phi: Optional[torch.Tensor],
         rc = lib.grail_fused_synth(
             ptr(tables.n), ptr(tables.scal), ptr(tables.vec),
             ptr(tables.latp), ptr(tables.latf), ptr(tables.lata),
-            ptr(tables.par), ptr(leh), ptr(phi), ptr(cell), ptr(g0),
-            ptr(lat_base), ptr(sf), ptr(si), ptr(audio), ptr(sf_out),
-            ptr(si_out), B, E, W, T, B // Ss, row_stride, int(bool(kcar)),
-            int(carry), float(np.float32(inc or 0.0)), p(stream))
-        LAUNCHES["fused_synth_carry" if carry else "fused_synth"] += 1
+            ptr(tables.par), ptr(leh), ptr(phi), ptr(cell), ptr(carrier),
+            ptr(g0), ptr(lat_base), ptr(sf), ptr(si), ptr(audio),
+            ptr(sf_out), ptr(si_out), B, E, W, T, B // Ss, row_stride,
+            int(bool(kcar)), int(carry), float(np.float32(inc or 0.0)),
+            p(stream))
+        LAUNCHES["fused_synth_carry" if carry else
+                 "fused_synth_track" if carrier is not None else
+                 "fused_synth"] += 1
     raise_on(lib, rc, "fused_synth kernel launch")
     return audio, sf_out, si_out
 
@@ -641,7 +682,8 @@ def synth_fused(tables: FusedTables, T: int, impl: str,
                 state: Optional[SynthState] = None, sched=None,
                 exact_carrier: bool = False,
                 phase_q32: Optional[torch.Tensor] = None,
-                g0: Optional[torch.Tensor] = None):
+                g0: Optional[torch.Tensor] = None,
+                carrier: Optional[torch.Tensor] = None):
     """tables -> (audio [B, T], final SynthState).
 
     `impl` is 'kernel' (fused_synth_cuda, which takes CUDA tensors only) or
@@ -654,7 +696,11 @@ def synth_fused(tables: FusedTables, T: int, impl: str,
     phase is then the exact post-update reference phase.
     `phase_q32` (uint32 values in int64 [B]) sets each lane's initial Q32
     phase exactly, in place of state.phase; `g0` (int [B]) offsets each
-    lane's samples (the split's segments). The 'carry' mode has one entry,
+    lane's samples (the split's segments). `carrier` (f32, shaped and
+    strided as phi) is the host-built carrier phase track of the
+    'host_track' mode: it replaces the carrier accumulator (not with
+    exact_carrier=True), and the returned phase is the one passed in. The
+    'carry' mode has one entry,
     the serving tick (runtime/stream._tick), which keeps the carried rows
     on the card between launches."""
     if sched is None:
@@ -671,7 +717,7 @@ def synth_fused(tables: FusedTables, T: int, impl: str,
         g0 = g0.to(device=dev, dtype=torch.int32).contiguous()
     phi, cell = sched
     audio, sf_o, si_o = IMPLEMENTATIONS[impl](
-        tables, phi, cell, sf, si, T, exact_carrier, g0=g0)
+        tables, phi, cell, sf, si, T, exact_carrier, g0=g0, carrier=carrier)
     if exact_carrier:
         phase = si_o[:, 2].view(torch.float32)
     else:

@@ -173,7 +173,7 @@ def test_split_kernel_equals_plain_bitwise(cuda):
     # split lanes: per-lane offsets g0, schedule rows, seam phases, seeds
     S = 4
     tables, _, _, T = _split_setup(cuda, S)
-    tables_t, (phi, cell), state, q, g0 = papi._split_lanes(
+    tables_t, (phi, cell), state, q, g0, _ = papi._split_lanes(
         tables, T, S, "kernel", g.get_voice("generic").jitter_frequency)
     sf, si = kf.state_rows(state, q)
     args = (tables_t, phi, cell, sf, si, T // S + papi.WARMUP, False)
@@ -470,3 +470,121 @@ def test_solo_read_on_cuda_matches_cpu(cuda):
     assert np.abs(outs[0]).max() > 0.01
     assert sample_error_db(outs[0], outs[1]) < -100 or np.array_equal(
         *outs)
+
+
+# ---- the host_track mode (the solo long-form route) and the FP32 probe -----
+
+@pytest.mark.parametrize("S", [1, 4], ids=["unsplit", "split4"])
+def test_host_track_kernel_equals_plain_bitwise(cuda, S):
+    # the track replaces both carrier accumulators; kernel and plain version
+    # read the same track, so audio and carried state agree bit for bit
+    tables, (phi, cell), T = _tables(["aeae"], ["generic"], cuda)
+    rng = np.random.default_rng(S)
+    track = rng.random(T - 11).astype(np.float32)
+    if S == 1:
+        car = papi._pad_track(track, T, cuda)
+        sched, lanes, g0, Tl = (phi, cell), tables, None, T
+    else:
+        T = _round_up(T, S * 4096)
+        lanes, seg, state, q, g0, car = papi._split_lanes(
+            tables, T, S, "kernel", g.get_voice("generic").jitter_frequency,
+            track)
+        sched, Tl = seg, T // S + papi.WARMUP
+        assert car.stride() == seg[0].stride() and not q.any()
+    B = lanes.n.shape[0]
+    sf = torch.randn(B, 24, device=cuda) * 1e-3
+    si = torch.tensor([[123456789, 42, 7]] * B, dtype=torch.int32,
+                      device=cuda)
+    n0 = dict(kf.LAUNCHES)
+    out_k = kf.fused_synth_cuda(lanes, *sched, sf, si, Tl, False, g0=g0,
+                                carrier=car)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES["fused_synth_track"] == n0["fused_synth_track"] + 1
+    assert all(kf.LAUNCHES[k] == n0[k] for k in n0
+               if k != "fused_synth_track")
+    out_p = kf.synth_fused_reference(lanes, *sched, sf, si, Tl, False, g0=g0,
+                                     carrier=car)
+    for k, p in zip(out_k, out_p):
+        assert torch.equal(k, p)
+    assert out_k[0].abs().max() > 0.01
+    # the Q32 and f32 phase columns pass through
+    assert torch.equal(out_k[2][:, 0], si[:, 0])
+    assert torch.equal(out_k[2][:, 2], si[:, 2])
+
+
+def test_host_track_wrapper_checks(cuda):
+    tables, (phi, cell), T = _tables(["ae"], ["generic"], cuda)
+    sf = torch.zeros(1, 24, device=cuda)
+    si = torch.zeros(1, 3, dtype=torch.int32, device=cuda)
+    car = torch.zeros(T, device=cuda)
+    with pytest.raises(ValueError, match="carrier track"):
+        kf.fused_synth_cuda(tables, phi, cell, sf, si, T, True, carrier=car)
+    with pytest.raises(ValueError, match="carrier track"):
+        kf.fused_synth_cuda(tables, None, None, sf,
+                            torch.zeros(1, 5, dtype=torch.int32, device=cuda),
+                            T, False, inc=0.0004, carrier=car)
+    with pytest.raises(ValueError, match="shape or strides"):
+        kf.fused_synth_cuda(tables, phi, cell, sf, si, T, False,
+                            carrier=car[:-1])
+    with pytest.raises(ValueError, match="dtype"):
+        kf.fused_synth_cuda(tables, phi, cell, sf, si, T, False,
+                            carrier=car.double())
+    with pytest.raises(ValueError, match="device"):
+        kf.fused_synth_cuda(tables, phi, cell, sf, si, T, False,
+                            carrier=car.cpu())
+
+
+def test_solo_track_route_on_cuda_matches_cpu(cuda):
+    # exact_carrier=True on one utterance: the host track, split kept, one
+    # launch of the track mode and no Q32 pre-pass; held against the CPU's
+    # split with the same track at the same S
+    from grail_tpu_torch.utils import sample_error_db
+
+    pel = g.text_to_phoneme_elems("hello there", "plain", "english")
+    v = g.get_voice("plain")
+    track = papi._carrier_track_for(pel, v, 0)
+    score = papi.score_from_phoneme_elems(pel, v)
+    N = _score_num_samples(score, 44100.0)
+    impl, carrier, S, T = g.route(1, N, True, cuda, 44100.0, track=True)
+    assert (impl, carrier) == ("kernel", "track") and S > 1
+    n0 = dict(kf.LAUNCHES)
+    a = g.synthesize("hello there", "plain", "english", exact_carrier=True)
+    assert kf.LAUNCHES["fused_synth_track"] == n0["fused_synth_track"] + 1
+    assert all(kf.LAUNCHES[k] == n0[k] for k in n0
+               if k != "fused_synth_track")
+    b = papi._synthesize_split([score], v, [0], S=S, device="cpu",
+                               carrier_tracks=[track])[0]
+    assert a.device.type == "cuda" and a.shape == b.shape == (N,)
+    assert sample_error_db(a.cpu().numpy(), b.numpy()) < -100
+    k = g.synthesize("hello there", "plain", "english",
+                     exact_carrier="kernel")
+    np.testing.assert_allclose(a.cpu().numpy(), k.cpu().numpy(), atol=5e-5,
+                               rtol=0)
+
+
+def test_fma_peak_kernel_against_plain(cuda):
+    from grail_tpu_torch.benchmarks import fma_peak as fp
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((1.0 + 0.5 * rng.random((16, 8, 128)))
+                         .astype(np.float32)).to(cuda)
+    iters, grid = 64, 2
+    plain = fp.fma_peak_reference(x, grid, iters)
+    n0 = fp.LAUNCHES["fma_peak"]
+    out = fp.fma_peak(x, grid, iters, "mul_add")
+    fused = fp.fma_peak(x, grid, iters, "fma")
+    torch.cuda.synchronize()
+    assert fp.LAUNCHES["fma_peak"] == n0 + 2
+    assert out.shape == plain.shape == (grid, x.numel())
+    assert torch.equal(out, plain)                 # two roundings per update
+    # one rounding per update: each step's error is under one ulp of a
+    # value below 2, 2^-23 * 2 per step at most
+    assert (fused - plain).abs().max() <= iters * 2.0 ** -22
+    assert not torch.equal(fused, plain)
+    with pytest.raises(ValueError, match="multiple"):
+        fp.fma_peak_cuda(x.reshape(-1)[:100], 1, 4)
+    with pytest.raises(ValueError, match="variant"):
+        fp.fma_peak_cuda(x, 1, 4, "fused")
+    m = fp.measure(iters=256)
+    for variant in fp.VARIANTS:
+        assert m[variant]["ms"] > 0 and m[variant]["instructions_per_s"] > 0
