@@ -79,11 +79,11 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      S > 1) and launch fused_synth_track once and no other kernel; the WAV
      read back finite and of the expected length; synthesize() of the same
      text < -60 dB spectral error against the native oracle
-     (pass_spectral_minus60) and within 5e-5 of the in-kernel recurrence's
-     route (exact_carrier="kernel", S = 1). Times: the pre-pass cold and
-     warm (it is memoized), the track's upload, the track route's program
-     and kernel, the unsplit kcar kernel, end to end. Then one REPL line
-     (interactive.main fed "hello") on the card.
+     (pass_spectral_minus60) and within 5e-5 per 30 s of audio of the
+     in-kernel recurrence's route (exact_carrier="kernel", S = 1). Times:
+     the pre-pass cold and warm (it is memoized), the track's upload, the
+     track route's program and kernel, the unsplit kcar kernel, end to
+     end. Then one REPL line (interactive.main fed "hello") on the card.
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
@@ -173,7 +173,10 @@ LONG_EN = ("the quick brown fox jumps over the lazy dog, while seventeen "
 LONG_VOICE, LONG_LANGUAGE = "plain", "english"
 TRACK_CHECK_TEXT = "hi"     # native track vs its plain numpy version
 GATE_DB = -60.0             # the fidelity gate: spectral error vs the oracle
-KCAR_ATOL = 5e-5            # track route vs the in-kernel recurrence
+# track route vs the in-kernel recurrence: the two frequency chains' ulps
+# add up over the f32 carrier recurrence, so the bound grows with length:
+# 5e-5 per 30 s of audio (at least 5e-5); 4.64e-5 was read at 86.5 s
+KCAR_ATOL_PER_30S = 5e-5
 PROBE_ITERS = 4096
 
 # the serving phase (StreamPool, kernel 1's carry mode): voice plain,
@@ -329,10 +332,16 @@ def main():
     _build.load_library()
     ptxas = [ln.strip() for ln in _build.build_info["log"].splitlines()
              if "registers" in ln or "Compiling entry" in ln]
+    from grail_tpu_torch.synth.kernel_fused import fused_synth_geometry
+
+    geo = fused_synth_geometry(dev)
     print(f"[2 build] {os.path.relpath(_build.build_info['path'], ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc, all sources at once, "
-          f"{_build.build_info['seconds']:.2f} s); {'; '.join(ptxas)}",
-          flush=True)
+          f"{_build.build_info['seconds']:.2f} s); {'; '.join(ptxas)}; "
+          f"fused_synth launch: {geo['threads']} threads per block, "
+          f"{geo['dynamic_smem']} B dynamic + {geo['static_smem']} B static "
+          f"shared, {geo['registers']} registers, {geo['blocks_per_sm']} "
+          f"blocks per SM", flush=True)
 
     import grail_tpu_torch as g
     import grail_tpu_torch.api as papi
@@ -995,9 +1004,10 @@ def long_form(card, dev, drive, check):
         LONG_EN, LONG_VOICE, LONG_LANGUAGE, exact_carrier="kernel"),
         {"fused_synth"})
     kcar_err = float((audio - kcar).abs().max())
-    if not kcar_err <= KCAR_ATOL:
+    kcar_atol = KCAR_ATOL_PER_30S * max(1.0, N / sr / 30.0)
+    if not kcar_err <= kcar_atol:
         raise AssertionError(f"[14] track route vs kcar route: max-abs "
-                             f"{kcar_err} > {KCAR_ATOL}")
+                             f"{kcar_err} > {kcar_atol}")
     kcar_db = spectral_error_db(kcar.cpu().numpy(), gold)
 
     def synth(**kwargs):
@@ -1021,7 +1031,8 @@ def long_form(card, dev, drive, check):
           f"{spectral_db} dB, sample error {sample_db} dB, "
           f"pass_spectral_minus60 {pass_spectral_minus60}; against the kcar "
           f"route (exact_carrier='kernel', S=1, launches fused_synth) "
-          f"max-abs {kcar_err} (atol {KCAR_ATOL}), whose own spectral error "
+          f"max-abs {kcar_err} (atol {kcar_atol}: {KCAR_ATOL_PER_30S} per "
+          f"30 s), whose own spectral error "
           f"is {kcar_db} dB; REPL: interactive.main fed 'hello' on the "
           f"card, launches {repl_counts}, {len(repl)} finite samples", 
           flush=True)

@@ -62,6 +62,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.grail_fused_synth_chunk.restype = i
     lib.grail_fused_synth_slots.argtypes = [i, ctypes.POINTER(i)]
     lib.grail_fused_synth_slots.restype = i
+    lib.grail_fused_synth_geometry.argtypes = [ctypes.POINTER(i)] * 5
+    lib.grail_fused_synth_geometry.restype = i
     lib.grail_phase_q32_pre.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.grail_phase_q32_pre.restype = i
     lib.grail_phase_q32_pre_chunk.argtypes = []

@@ -9,7 +9,7 @@
 // it runs the whole reference chain: element index by boundary count, the
 // cur/next rows, blend alpha and the 4-case pick; value-noise jitter from
 // the shared exact (phi, cell) schedule; the carrier phase; polyBLEP saw;
-// closed-form Lehmer noise; the seven one-pole + SVF coefficient streams;
+// closed-form Lehmer noise; the one-pole + SVF coefficient streams;
 // and the sequential one-pole lowpass + 8-formant SVF recurrence. Each
 // lane may start at a sample offset g0 and read its own row of the
 // schedule: the overlap-save split runs S time segments of each utterance
@@ -40,20 +40,42 @@
 //
 // What bounds it on this card: not bytes and not FLOPs. Inputs are a few
 // KB of tables per utterance plus an 8 B/sample schedule shared by all
-// utterances; the output is 4 B/sample. The bound is dependency latency:
-// the recurrence is sequential in time, so per chunk of 128 samples only 8
-// threads (one per formant) walk 128 dependent steps of ~15 float ops,
-// while 120 threads wait; and a batch of B utterances gives only B blocks
-// for 132 SMs. The design keeps everything but the recurrence off that
-// critical path: one block of 128 threads per utterance; per chunk, one
-// thread per sample computes the feed-forward part (phases A-C) into shared
-// memory as seven [128][8] coefficient streams (28 KB), then 8 threads run
-// the recurrence from shared memory, then one thread per sample sums the
-// formants and writes the output. The TPU kernel's carry across grid steps
-// becomes a loop over chunks inside the block, with lp/b/c, the Q32 phase,
-// the Lehmer seed and the f32 carrier phase in registers. The split fills
-// the card: grail_fused_synth_slots reports how many blocks it holds at
-// once, and the API picks the segment count S from it.
+// utterances; the output is 4 B/sample. The bound is chunk latency. The
+// recurrence is sequential in time: per chunk of 128 samples, 8 threads
+// (one per formant) walk 128 dependent steps. The feed-forward part
+// (sequencer search, row and lattice gathers, carrier, three divisions) is
+// parallel over samples but long in latency, and a batch gives few blocks
+// per SM to hide it. Run one after the other, a chunk costs the
+// feed-forward plus the recurrence plus the output.
+//
+// The design overlaps them: one block of 160 threads per lane runs a
+// two-stage pipeline over its 128-sample chunks. Warps 0-3 (the producers,
+// one thread per sample) compute chunk k + 1's feed-forward and write six
+// [8][128] coefficient streams and the valid mask into one half of a
+// two-buffer ring in shared memory, while warp 4 (the consumer) runs chunk
+// k's recurrence from the other half: lanes 0-7, one per formant, carry
+// lp/b/c in registers and load the next four steps' values (16 B a stream)
+// while four steps compute; then all 32 lanes sum the formants and write
+// the audio. Named barriers hand each half over: "full" (producers arrive,
+// consumer waits) and "empty" (consumer arrives once it has written chunk
+// k's audio, producers wait before they overwrite). The producers' own
+// steps that need every sample of a chunk (the Q32 block scan, the kcar
+// and jitter loops) synchronise the 128 producer threads alone, so the
+// consumer never waits on them. A chunk then costs the longer of the two
+// stages, not their sum. On an H100 the producers' stage is the longer one
+// on every path (benchmarks/kernel1_ab.py phases: the consumer waits for
+// a full buffer 58-78 % of each chunk), so what bounds the kernel now is
+// the feed-forward's own latency: the search, the gathers, the divisions
+// and the serial kcar and jitter loops. The Q32 phase, the Lehmer seed,
+// the f32 carrier phase and the jitter state live in the producers'
+// registers, lp/b/c in the consumer's. The stream m22
+// and the products q1, q2 are formed by the consumer from the stored m21,
+// 2*a3c and tamp, with the same rounded operations as the plain version.
+// The ring (51,712 B) is dynamic shared memory; with the producers'
+// scratch (2,592 B) a block holds 54,304 B, so 4 blocks share an SM (20
+// warps, at most 96 registers a thread). The split fills the card:
+// grail_fused_synth_slots reports how many blocks it holds at once, and the
+// API picks the segment count S from it.
 //
 // Numerics: build with -fmad=false and without --use_fast_math, so every
 // float op rounds as in the plain PyTorch version (synth_fused_reference):
@@ -70,12 +92,60 @@
 
 #include "seq_freq.cuh"
 
-#define CHUNK 128      // samples per chunk = threads per block
+#define CHUNK 128      // samples per chunk = producer threads
 #define NF 8           // formants
 #define NVEC (6 * NF)  // vec row: ff, bw, smooth, breath, turb, amp (8 each)
+#define NPROD CHUNK    // producer threads (warps 0-3)
+#define NTHREADS (NPROD + 32)   // + the consumer warp
+#define MIN_BLOCKS 4   // resident blocks per SM the budget is held to
 
-// Inclusive scan of v over the block (wrapping uint32 adds); *total gets
-// the block-wide sum. Contains one __syncthreads.
+// the ring: per buffer, six coefficient streams [f][sample] and the valid
+// mask. A row is padded to 132 floats: a warp of producers storing one
+// formant's row, the consumer's 8 formant lanes loading 16 B each at one
+// step, and its 32 lanes reading one formant's outputs all hit distinct
+// banks
+enum { S_ALPHA, S_D, S_M11, S_M21, S_A3C2, S_TAMP, NSTREAM };
+#define ROW (CHUNK + 4)
+#define BUF_FLOATS (NSTREAM * NF * ROW + CHUNK)
+#define RING_BYTES (2 * BUF_FLOATS * 4)
+
+// named barriers (0 is __syncthreads): the producers' own, and per ring
+// buffer its "full" and "empty" hand-over
+#define BAR_PROD 1
+#define BAR_FULL 2    // + buffer
+#define BAR_EMPTY 4   // + buffer
+
+static __device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+static __device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// One step of one formant's recurrence, as the plain version rounds it:
+// lp' = alpha*lp + d; b' = (m11*b - m21*c) + q1*lp'; c' = (m21*b + m22*c)
+// + q2*lp', with m22 = 1 - 2*a3c, q1 = m21*tamp, q2 = 2*a3c*tamp. Returns
+// the output term b' + b.
+static __device__ __forceinline__ float svf_step(float al, float dd,
+                                                 float m11, float m21,
+                                                 float a3c2, float tamp,
+                                                 float& lp, float& bs,
+                                                 float& cs) {
+  lp = al * lp + dd;
+  const float q1 = m21 * tamp;
+  const float q2 = a3c2 * tamp;
+  const float m22 = 1.f - a3c2;
+  const float nbv = m11 * bs - m21 * cs + q1 * lp;
+  const float ncv = m21 * bs + m22 * cs + q2 * lp;
+  const float y = nbv + bs;
+  bs = nbv;
+  cs = ncv;
+  return y;
+}
+
+// Inclusive scan of v over the producers (wrapping uint32 adds); *total
+// gets their sum. Synchronises the producers once.
 __device__ __forceinline__ uint32_t block_incl_scan(uint32_t v,
                                                     uint32_t* s_warp,
                                                     uint32_t* total) {
@@ -87,10 +157,10 @@ __device__ __forceinline__ uint32_t block_incl_scan(uint32_t v,
     if (lane >= o) v += u;
   }
   if (lane == 31) s_warp[warp] = v;
-  __syncthreads();
+  bar_sync(BAR_PROD, NPROD);
   uint32_t off = 0, tot = 0;
 #pragma unroll
-  for (int w = 0; w < CHUNK / 32; ++w) {
+  for (int w = 0; w < NPROD / 32; ++w) {
     const uint32_t x = s_warp[w];
     if (w < warp) off += x;
     tot += x;
@@ -99,7 +169,7 @@ __device__ __forceinline__ uint32_t block_incl_scan(uint32_t v,
   return v + off;
 }
 
-__global__ void __launch_bounds__(CHUNK)
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
                    const float* __restrict__ vec,
                    const float* __restrict__ latp,
@@ -117,20 +187,93 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
                    float* __restrict__ sf_out, int* __restrict__ si_out, int E,
                    int W, int T, int lanes_per_row, int row_stride, int kcar,
                    int jcarry, float inc) {
-  __shared__ float s_alpha[CHUNK][NF];   // after D: the output terms b' + b
-  __shared__ float s_d[CHUNK][NF];
-  __shared__ float s_q1[CHUNK][NF];
-  __shared__ float s_q2[CHUNK][NF];
-  __shared__ float s_m11[CHUNK][NF];
-  __shared__ float s_m21[CHUNK][NF];
-  __shared__ float s_m22[CHUNK][NF];
-  __shared__ float s_car[CHUNK];         // kcar: frequency in, phase out
-  __shared__ float s_jphi[CHUNK];        // jcarry: the chunk's jitter phase
-  __shared__ int s_jcell[CHUNK];         // jcarry: and absolute cell
-  __shared__ uint32_t s_warp[CHUNK / 32];
+  extern __shared__ float4 ring4[];        // [2][BUF_FLOATS] floats
+  float* ring = reinterpret_cast<float*>(ring4);
+  // the producers' scratch; what a step writes for every sample and reads
+  // back after a producer barrier is double-buffered by chunk parity, so
+  // chunk k + 1 cannot overwrite what a slower warp still reads of chunk k
+  __shared__ float s_car[CHUNK];           // kcar: frequency in, phase out
+  __shared__ float s_jphi[2][CHUNK];       // jcarry: the chunk's jitter phase
+  __shared__ int s_jcell[2][CHUNK];        // jcarry: and absolute cell
+  __shared__ uint32_t s_warp[2][NPROD / 32];
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
+  const int nch = T / CHUNK;
+  const int si_cols = jcarry ? 5 : 3;   // carry mode: + jitter phase, cell
+
+  if (t >= NPROD) {
+    // ---- the consumer warp: recurrence and output of chunk k ------------
+    const int lane = t - NPROD;
+    float lp = 0.f, bs = 0.f, cs = 0.f;
+    if (lane < NF) {
+      lp = sf_in[b * 3 * NF + lane];
+      bs = sf_in[b * 3 * NF + NF + lane];
+      cs = sf_in[b * 3 * NF + 2 * NF + lane];
+    }
+    for (int k = 0; k < nch; ++k) {
+      float* buf = ring + (k & 1) * BUF_FLOATS;
+      bar_sync(BAR_FULL + (k & 1), NTHREADS);
+      if (lane < NF) {
+        // one formant's 128 dependent steps, four at a time: the next four
+        // steps' values are loaded (16 B per stream) while these compute,
+        // and the output terms b' + b overwrite the alpha just read
+        const float4* st4 = reinterpret_cast<const float4*>(buf + lane * ROW);
+        float4* y4 = reinterpret_cast<float4*>(buf + lane * ROW);
+        constexpr int G = NF * ROW / 4;   // float4s between two streams
+        float4 al = st4[S_ALPHA * G], dd = st4[S_D * G],
+               m11 = st4[S_M11 * G], m21 = st4[S_M21 * G],
+               a3 = st4[S_A3C2 * G], ta = st4[S_TAMP * G];
+#pragma unroll 2
+        for (int g = 0; g < CHUNK / 4; ++g) {
+          const int gn = g + 1 < CHUNK / 4 ? g + 1 : g;
+          const float4 al_n = st4[S_ALPHA * G + gn];
+          const float4 dd_n = st4[S_D * G + gn];
+          const float4 m11_n = st4[S_M11 * G + gn];
+          const float4 m21_n = st4[S_M21 * G + gn];
+          const float4 a3_n = st4[S_A3C2 * G + gn];
+          const float4 ta_n = st4[S_TAMP * G + gn];
+          float4 y;
+          y.x = svf_step(al.x, dd.x, m11.x, m21.x, a3.x, ta.x, lp, bs, cs);
+          y.y = svf_step(al.y, dd.y, m11.y, m21.y, a3.y, ta.y, lp, bs, cs);
+          y.z = svf_step(al.z, dd.z, m11.z, m21.z, a3.z, ta.z, lp, bs, cs);
+          y.w = svf_step(al.w, dd.w, m11.w, m21.w, a3.w, ta.w, lp, bs, cs);
+          y4[S_ALPHA * G + g] = y;
+          al = al_n;
+          dd = dd_n;
+          m11 = m11_n;
+          m21 = m21_n;
+          a3 = a3_n;
+          ta = ta_n;
+        }
+      }
+      __syncwarp();
+      // output: 0.25 * sum over formants (left to right), zero past the end;
+      // lane j writes samples j, j + 32, j + 64, j + 96
+      const float* y_p = buf + S_ALPHA * NF * ROW;
+      const float* vm_p = buf + NSTREAM * NF * ROW;
+      float* out = audio + (size_t)b * T + (size_t)k * CHUNK;
+#pragma unroll
+      for (int u = 0; u < CHUNK / 32; ++u) {
+        const int i = lane + 32 * u;
+        float y = y_p[i];
+#pragma unroll
+        for (int f = 1; f < NF; ++f) y = y + y_p[f * ROW + i];
+        out[i] = (y * 0.25f) * vm_p[i];
+      }
+      // the producers wait for this buffer only if a chunk k + 2 follows
+      if (k + 2 < nch) bar_arrive(BAR_EMPTY + (k & 1), NTHREADS);
+    }
+    if (lane < NF) {
+      sf_out[b * 3 * NF + lane] = lp;
+      sf_out[b * 3 * NF + NF + lane] = bs;
+      sf_out[b * 3 * NF + 2 * NF + lane] = cs;
+    }
+    return;
+  }
+
+  // ---- the producers: the feed-forward part of chunk k, one thread per
+  // sample --------------------------------------------------------------
   const int* nb = n + (size_t)b * E;
   const float* scb = scal + (size_t)b * E * NSCAL;
   const float* vcb = vec + (size_t)b * E * NVEC;
@@ -151,22 +294,16 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   const uint32_t leh_a = leh[t], leh_s = leh[CHUNK + t];
   const uint32_t leh_a_end = leh[CHUNK - 1], leh_s_end = leh[2 * CHUNK - 1];
 
-  const int si_cols = jcarry ? 5 : 3;   // carry mode: + jitter phase, cell
   const int* sib = si_in + (size_t)b * si_cols;
   uint32_t q32 = (uint32_t)sib[0];
   uint32_t seed = (uint32_t)sib[1];
   float kphase = __int_as_float(sib[2]);
   float jphi = jcarry ? __int_as_float(sib[3]) : 0.f;
   int jcell = jcarry ? sib[4] : 0;
-  float lp = 0.f, bs = 0.f, cs = 0.f;
-  if (t < NF) {
-    lp = sf_in[b * 3 * NF + t];
-    bs = sf_in[b * 3 * NF + NF + t];
-    cs = sf_in[b * 3 * NF + 2 * NF + t];
-  }
 
-  for (int c0 = 0; c0 < T; c0 += CHUNK) {
-    const int k = c0 + t;   // 0-based lane sample; k1 the absolute 1-based
+  for (int k = 0; k < nch; ++k) {
+    const int kk = k * CHUNK + t;   // 0-based lane sample
+    const int par_k = k & 1;
 
     // ---- the jitter schedule: read, or stepped from the carried state --
     float ph;
@@ -181,22 +318,22 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
             p = p - 1.f;
             c += 1;
           }
-          s_jphi[i] = p;
-          s_jcell[i] = c;
+          s_jphi[par_k][i] = p;
+          s_jcell[par_k][i] = c;
         }
         jphi = p;
         jcell = c;
       }
-      __syncthreads();
-      ph = s_jphi[t];
-      cl_in = s_jcell[t] - lb;   // the window's row; seq_freq clamps it
+      bar_sync(BAR_PROD, NPROD);
+      ph = s_jphi[par_k][t];
+      cl_in = s_jcell[par_k][t] - lb;   // the window's row; seq_freq clamps
     } else {
-      ph = phi[row + k];
-      cl_in = cell[row + k];
+      ph = phi[row + kk];
+      cl_in = cell[row + kk];
     }
 
     // ---- A-B: sequencer pick and pitch jitter (seq_freq.cuh) ------------
-    const SeqFreq sq = seq_freq(off + k + 1, nb, scb, E, dt, lpb, W, jdf, ph,
+    const SeqFreq sq = seq_freq(off + kk + 1, nb, scb, E, dt, lpb, W, jdf, ph,
                                 cl_in);
     const int jc = sq.jc, jn = sq.jn, cl = sq.cl;
     const bool valid = sq.valid, hs_c = sq.hs_c, hs_n = sq.hs_n;
@@ -206,10 +343,12 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
     // ---- C: carrier phase (pre-update) --------------------------------
     float phase;
     if (car) {
-      phase = car[row + k];
+      phase = car[row + kk];
     } else if (kcar) {
+      // s_car[t] is this thread's own slot: it read it last chunk before
+      // reaching this chunk's barriers, so one buffer suffices
       s_car[t] = freq_j;
-      __syncthreads();
+      bar_sync(BAR_PROD, NPROD);
       if (t == 0) {
         float p = kphase;
         for (int i = 0; i < CHUNK; ++i) {
@@ -220,12 +359,12 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
         }
         kphase = p;
       }
-      __syncthreads();
+      bar_sync(BAR_PROD, NPROD);
       phase = s_car[t];
     } else {
       const uint32_t fq = __float2uint_rz(freq_j * 4294967296.0f);
       uint32_t total;
-      const uint32_t incl = block_incl_scan(fq, s_warp, &total);
+      const uint32_t incl = block_incl_scan(fq, s_warp[par_k], &total);
       phase = __uint2float_rn(q32 + (incl - fq)) * 2.3283064365386963e-10f;
       q32 += total;
     }
@@ -250,6 +389,10 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
     const float* ac = lab + cl * NF;
     const float jdff_m = vm * jdff;
     const float jda_m = vm * (0.5f * jda);
+
+    // the buffer of chunk k is free once the consumer is done with k - 2
+    if (k >= 2) bar_sync(BAR_EMPTY + par_k, NTHREADS);
+    float* buf = ring + par_k * BUF_FLOATS;
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       const float ff_e = pick(vc[f], vn[f], 0.25f, alf, one_m, valid, hs_c,
@@ -296,45 +439,18 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
       const float a1 = fD2 * r;
       const float a2 = (x * ND) * r;
       const float a3c = fN2 * r;
-      const float m21 = 2.f * a2;
-      s_alpha[t][f] = alpha;
-      s_d[t][f] = (1.f - alpha) * nw;
-      s_q1[t][f] = m21 * tamp;
-      s_q2[t][f] = (2.f * a3c) * tamp;
-      s_m11[t][f] = 2.f * a1 - 1.f;
-      s_m21[t][f] = m21;
-      s_m22[t][f] = 1.f - 2.f * a3c;
+      float* col = buf + f * ROW + t;
+      col[S_ALPHA * NF * ROW] = alpha;
+      col[S_D * NF * ROW] = (1.f - alpha) * nw;
+      col[S_M11 * NF * ROW] = 2.f * a1 - 1.f;
+      col[S_M21 * NF * ROW] = 2.f * a2;
+      col[S_A3C2 * NF * ROW] = 2.f * a3c;
+      col[S_TAMP * NF * ROW] = tamp;
     }
-    __syncthreads();
-
-    // ---- D: the sequential recurrence, one thread per formant ----------
-    if (t < NF) {
-      const int f = t;
-      for (int i = 0; i < CHUNK; ++i) {
-        lp = s_alpha[i][f] * lp + s_d[i][f];
-        const float m21 = s_m21[i][f];
-        const float nbv = s_m11[i][f] * bs - m21 * cs + s_q1[i][f] * lp;
-        const float ncv = m21 * bs + s_m22[i][f] * cs + s_q2[i][f] * lp;
-        s_alpha[i][f] = nbv + bs;
-        bs = nbv;
-        cs = ncv;
-      }
-    }
-    __syncthreads();
-
-    // ---- output: 0.25 * sum over formants, zero past the end ----------
-    float y = s_alpha[t][0];
-#pragma unroll
-    for (int f = 1; f < NF; ++f) y = y + s_alpha[t][f];
-    audio[(size_t)b * T + k] = (y * 0.25f) * vm;
-    __syncthreads();   // shared streams are rewritten by the next chunk
+    buf[NSTREAM * NF * ROW + t] = vm;
+    bar_arrive(BAR_FULL + par_k, NTHREADS);
   }
 
-  if (t < NF) {
-    sf_out[b * 3 * NF + t] = lp;
-    sf_out[b * 3 * NF + NF + t] = bs;
-    sf_out[b * 3 * NF + 2 * NF + t] = cs;
-  }
   if (t == 0) {
     int* sob = si_out + (size_t)b * si_cols;
     sob[0] = (kcar || car) ? sib[0] : (int)q32;
@@ -347,9 +463,28 @@ fused_synth_kernel(const int* __restrict__ n, const float* __restrict__ scal,
   }
 }
 
+// The ring is dynamic shared memory above the 48 KB a block gets by
+// default: raise the kernel's limit, and prefer the largest shared-memory
+// carveout so that MIN_BLOCKS blocks fit on an SM. Once per device.
+static cudaError_t configure(void) {
+  static bool done[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  e = cudaFuncSetAttribute(fused_synth_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           RING_BYTES);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fused_synth_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
+}
+
 extern "C" {
 
-// Launches one block per lane on `stream`; returns cudaGetLastError().
+// Launches one block per lane on `stream`; returns a CUDA error code.
 // phi/cell hold B / lanes_per_row rows of T samples, row_stride apart (rows
 // may overlap, as the split's segment windows do); g0 may be null (all 0).
 // car, when not null, is the carrier phase track, laid out as phi is (the
@@ -365,7 +500,9 @@ int grail_fused_synth(const int* n, const float* scal, const float* vec,
                       float* sf_out, int* si_out, int B, int E, int W, int T,
                       int lanes_per_row, int row_stride, int kcar, int jcarry,
                       float inc, void* stream) {
-  fused_synth_kernel<<<B, CHUNK, 0, (cudaStream_t)stream>>>(
+  const cudaError_t e = configure();
+  if (e != cudaSuccess) return (int)e;
+  fused_synth_kernel<<<B, NTHREADS, RING_BYTES, (cudaStream_t)stream>>>(
       n, scal, vec, latp, latf, lata, par, leh, phi, cell, car, g0, lat_base,
       sf_in, si_in, audio, sf_out, si_out, E, W, T, lanes_per_row, row_stride,
       kcar, jcarry, inc);
@@ -373,14 +510,39 @@ int grail_fused_synth(const int* n, const float* scal, const float* vec,
 }
 
 // *slots = blocks of fused_synth_kernel resident at once on `device`: the
-// occupancy API's blocks per SM times the SM count. Returns a CUDA error.
+// occupancy API's blocks per SM at the launch's own thread count and
+// dynamic shared memory, times the SM count. Returns a CUDA error.
 int grail_fused_synth_slots(int device, int* slots) {
   int per_sm = 0, sms = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_synth_kernel, CHUNK, 0);
+  cudaError_t e = configure();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_synth_kernel, NTHREADS, RING_BYTES);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   *slots = per_sm * sms;
+  return (int)e;
+}
+
+// The launch geometry: threads per block, dynamic shared bytes per block,
+// the kernel's registers per thread and static shared bytes, and the shared
+// memory of one SM of the current device.
+int grail_fused_synth_geometry(int* threads, int* dyn_smem, int* regs,
+                               int* static_smem, int* sm_smem) {
+  cudaFuncAttributes a;
+  int dev = 0;
+  *threads = NTHREADS;
+  *dyn_smem = RING_BYTES;
+  *regs = *static_smem = *sm_smem = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, fused_synth_kernel);
+  if (e == cudaSuccess) {
+    *regs = a.numRegs;
+    *static_smem = (int)a.sharedSizeBytes;
+    e = cudaGetDevice(&dev);
+  }
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   return (int)e;
 }
 

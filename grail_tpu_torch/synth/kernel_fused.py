@@ -72,7 +72,7 @@ from ..core.rng import (MASK32, lehmer_block_states, lehmer_chunk_tables,
 from ._build import LAUNCHES, raise_on, resident
 from .synthesize import _INV_Q32, _Q32, SynthState, q32_carrier
 
-CHUNK = 128                  # samples per kernel chunk (= threads per block)
+CHUNK = 128                  # samples per kernel chunk (= producer threads)
 CHUNK_PRE = 1024             # samples per pre-pass chunk sum
 _MIN_LAT_ROWS = 16           # lattices padded to at least this many rows
 
@@ -631,9 +631,32 @@ def phase_q32_pre_cuda(tables: FusedTables, phi: torch.Tensor,
 
 def fused_synth_slots(device) -> int:
     """Thread blocks of the fused kernel the card holds at once: the
-    occupancy API's resident blocks per SM times the SM count, queried from
-    the card on first use and memoized per device."""
+    occupancy API's resident blocks per SM, at the launch's own thread count
+    and dynamic shared memory, times the SM count, queried from the card on
+    first use and memoized per device."""
     return resident("grail_fused_synth_slots", device)
+
+
+def fused_synth_geometry(device) -> dict:
+    """The fused kernel's launch geometry on CUDA `device`: threads per
+    block, dynamic and static shared bytes per block, registers per thread
+    (the compiled kernel's), resident blocks per SM, and the shared memory
+    of one SM."""
+    import ctypes
+
+    from ._build import load_library
+
+    dev = torch.device(device)
+    lib = load_library()
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    with torch.cuda.device(dev):
+        rc = lib.grail_fused_synth_geometry(*map(ctypes.byref, vals))
+    raise_on(lib, rc, "fused_synth geometry query")
+    threads, dyn, regs, static, sm_smem = (v.value for v in vals)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"threads": threads, "dynamic_smem": dyn, "static_smem": static,
+            "registers": regs, "sm_smem": sm_smem,
+            "blocks_per_sm": fused_synth_slots(dev) // sms}
 
 
 IMPLEMENTATIONS = {"kernel": fused_synth_cuda, "plain": synth_fused_reference}
@@ -733,4 +756,5 @@ __all__ = ["CHUNK", "CHUNK_PRE", "LAUNCHES", "FusedTables", "FreqChain",
            "freq_chain", "q32_carrier", "f32_carrier",
            "synth_fused_reference", "fused_synth_cuda", "IMPLEMENTATIONS",
            "synth_fused", "state_rows", "phase_q32_pre_reference", "phase_q32_pre_cuda",
-           "PRE_IMPLEMENTATIONS", "phase_q32_pre_block", "fused_synth_slots"]
+           "PRE_IMPLEMENTATIONS", "phase_q32_pre_block", "fused_synth_slots",
+           "fused_synth_geometry"]

@@ -187,6 +187,7 @@ def test_entry_points_import_no_jax():
             "grail_tpu_torch.runtime.native, grail_tpu_torch.runtime.wav, "
             "grail_tpu_torch.runtime.playback, "
             "grail_tpu_torch.benchmarks.fma_peak, "
+            "grail_tpu_torch.benchmarks.kernel1_ab, "
             "grail_tpu_torch.voices.fileformat, "
             "grail_tpu_torch.languages.fileformat; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

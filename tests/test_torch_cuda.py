@@ -208,9 +208,92 @@ def test_wrapper_rejects_bad_split_inputs(cuda):
 
 
 def test_slots_from_the_card(cuda):
+    # the occupancy query counts the launch's own 160 threads and dynamic
+    # shared memory: the blocks it reports per SM fit in the SM's shared
+    # memory at that size, and the budget of 4 blocks per SM holds
     slots = kf.fused_synth_slots(cuda)
     props = torch.cuda.get_device_properties(cuda)
-    assert slots % props.multi_processor_count == 0 and slots >= 1
+    sms = props.multi_processor_count
+    geo = kf.fused_synth_geometry(cuda)
+    assert slots % sms == 0 and slots == geo["blocks_per_sm"] * sms
+    assert geo["threads"] == kf.CHUNK + 32
+    assert geo["dynamic_smem"] > 48 * 1024
+    assert geo["blocks_per_sm"] * (geo["dynamic_smem"] + geo["static_smem"]) \
+        <= geo["sm_smem"]
+    assert slots >= 4 * sms
+    assert 0 < geo["registers"] <= 96
+    # bench.py's 64 texts still split 8 ways in one wave
+    texts = [("aeae" * 4)[:8 + (i % 8)] for i in range(64)]
+    b = papi._Batch([g.text_to_score(t) for t in texts], "generic", None)
+    S = g.route(64, max(b.Ns), None, cuda, 44100.0)[2]
+    assert S == 8 and S * 64 <= slots
+
+
+def _edge_case(cuda, mode, T):
+    """Kernel 1's arguments in `mode` for lanes of T samples: (args, kw,
+    launch counter). q32 and kcar: three utterances sharing a [T] schedule,
+    each lane at its own offset inside its utterance; track1: one lane
+    reading a carrier track; track4: the split's shape, four lanes of one
+    utterance at offsets `step` apart with overlapping schedule and track
+    rows; carry: three lanes of the serving tick, T samples each."""
+    rng = np.random.default_rng(T)
+    if mode == "carry":
+        x = _carry_setup(cuda, 3)
+        return ((x["tables"], None, None, x["sf"], x["si"], T, True),
+                dict(g0=x["g0"], lat_base=x["lat_base"], inc=x["inc"]),
+                "fused_synth_carry")
+    tables, (phi, cell), _ = _tables(["ae", "ea", "aeae"], ["generic"] * 3,
+                                     cuda)
+    kw, counter = {}, "fused_synth"
+    if mode == "track4":
+        step = T // 2 + 128
+        tables = kf.FusedTables(*(x[2:3].repeat((4,) + (1,) * (x.dim() - 1))
+                                  .contiguous() for x in tables))
+        n_win = 3 * step + T
+        car = torch.from_numpy(rng.random(n_win).astype(np.float32)).to(cuda)
+        phi, cell, car = (x[:n_win].as_strided((4, T), (step, 1))
+                          for x in (phi, cell, car))
+        kw = dict(carrier=car, g0=torch.tensor(
+            [7_000 + s * step for s in range(4)], dtype=torch.int32,
+            device=cuda))
+        counter = "fused_synth_track"
+    else:
+        phi, cell = phi[:T], cell[:T]
+        if mode == "track1":
+            tables = kf.FusedTables(*(x[2:3] for x in tables))
+            kw = dict(carrier=torch.from_numpy(
+                rng.random(T).astype(np.float32)).to(cuda))
+            counter = "fused_synth_track"
+        kw["g0"] = torch.tensor([3_000, 5_000, 9_000][:tables.n.shape[0]],
+                                dtype=torch.int32, device=cuda)
+    B = tables.n.shape[0]
+    sf = torch.from_numpy(rng.standard_normal((B, 24)).astype(np.float32)
+                          * 1e-3).to(cuda)
+    si = torch.tensor([[123456789, 42, 0]] * B, dtype=torch.int32,
+                      device=cuda)
+    si[:, 2] = torch.full((B,), 0.25, device=cuda).view(torch.int32)
+    return (tables, phi, cell, sf, si, T, mode == "kcar"), kw, counter
+
+
+@pytest.mark.parametrize("T", [128, 256, 384])
+@pytest.mark.parametrize("mode", ["q32", "kcar", "track1", "track4",
+                                  "carry"])
+def test_pipeline_edges_equal_plain_bitwise(cuda, mode, T):
+    # one, two and three chunks: the ring's fill, a hand-over in each
+    # direction, and a drain after an odd count; audio, sf and si bit for
+    # bit in every mode
+    args, kw, counter = _edge_case(cuda, mode, T)
+    n0 = dict(kf.LAUNCHES)
+    out_k = kf.fused_synth_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES[counter] == n0[counter] + 1
+    assert all(kf.LAUNCHES[k] == n0[k] for k in n0 if k != counter)
+    out_p = kf.synth_fused_reference(*args, **kw)
+    assert out_k[0].shape == (args[0].n.shape[0], T)
+    for name, k, p in zip(("audio", "sf", "si"), out_k, out_p):
+        assert torch.equal(k, p), name
+    assert bool(torch.isfinite(out_k[0]).all())
+    assert float(out_k[0].abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------

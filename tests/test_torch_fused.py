@@ -200,3 +200,22 @@ def test_build_tables_rejects_decreasing_boundaries():
                                        build_lattice(0, 4096, 0.0004)))
     with pytest.raises(ValueError, match="non-decreasing"):
         pk.build_tables(bad, lat, (0.0004, 0.0, 0.0, 0.0), 44100.0)
+
+
+def test_kernel1_ab_stamps_the_checkout_kernel(tmp_path):
+    # benchmarks/kernel1_ab.py's `phases` patches clock64() stamps into a
+    # copy of fused_synth.cu at fixed anchors: each must stand exactly once
+    # in the checkout's source, or the stage split silently measures nothing
+    from pathlib import Path
+
+    from grail_tpu_torch.benchmarks import kernel1_ab as ab
+
+    src = (Path(pk.__file__).parent / "csrc" / "fused_synth.cu").read_text()
+    text, names = ab._stamped(src)
+    assert names == ab._PIPELINE_NAMES
+    assert text.count("clock64()") >= 8 and "grail_phases_read" in text
+    with pytest.raises(ValueError, match="anchors"):
+        ab._stamped(src.replace("bar_sync(BAR_FULL", "bar_sync(BAR_X"))
+    # no card here: the script refuses before it builds anything
+    assert ab.main(["turns", str(tmp_path / "old.cu")]) == 1
+    assert ab.main(["nosuch", "x"]) == 2

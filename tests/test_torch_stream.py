@@ -359,6 +359,50 @@ def test_jax_pool_checkpoint_loads_into_the_port():
     np.testing.assert_array_equal(again, got)
 
 
+def test_port_pool_checkpoint_loads_into_jax():
+    # the other direction: the port's pool save() blob, and one pool
+    # session's save_state(), restore into grail_tpu's pools, which
+    # continue as the port does
+    kw = dict(voice="plain", language="english", block=BLOCK)
+    pp = pstream.StreamPool(3, seeds=[3, 1, 4], device="cpu", **kw)
+    for i, t in enumerate(["hello world ", "aeio ", ""]):
+        if t:
+            pp.feed(i, t)
+            pp.flush(i)
+    for _ in range(3):
+        pp.read_block()
+    blob = pp.save()
+    session_blob = pp.sessions[0].save_state()
+    ref = np.concatenate([pp.read_block() for _ in range(3)], axis=1)
+    seeds = pp._si[:, 1].numpy().view(np.uint32)
+
+    jp = jstream.StreamPool(3, backend="fused_interpret", seeds=[9, 9, 9],
+                            **kw)
+    jp.load(blob)
+    assert [s._lattice._pitch_state.state for s in jp.sessions] == \
+        [s._lattice._pitch_state.state for s in pp.sessions]
+    got = np.concatenate([np.asarray(jp.read_block()) for _ in range(3)],
+                         axis=1)
+    for i in (0, 1):
+        assert sample_error_db(got[i], ref[i]) < -100, i
+    np.testing.assert_array_equal(got[2], ref[2])        # the silent lane
+    np.testing.assert_array_equal(np.asarray(jp._states.seed), seeds)
+
+    # a session's blob, into another pool's session that has read other
+    # text at another pool lag
+    jq = jstream.StreamPool(3, backend="fused_interpret", seeds=[5, 5, 5],
+                            **kw)
+    jq.feed(0, "aeio ")
+    jq.flush(0)
+    for _ in range(2):
+        jq.read_block()
+    jq.sessions[0].load_state(session_blob)
+    got0 = np.concatenate([np.asarray(jq.read_block())[0] for _ in range(3)])
+    assert sample_error_db(got0, ref[0]) < -100
+    assert int(np.asarray(jq._states.seed)[0]) == int(seeds[0])
+    assert jq.sessions[0]._jitter_pos == pp.sessions[0]._jitter_pos
+
+
 def test_pool_session_checkpoint_restore():
     # a pool-owned session's load_state scatters its rows back into the
     # pool; the next tick re-renders what a restored solo session renders
