@@ -33,7 +33,12 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      state of unsplit kernel 1 run to that sample; split kernel 1 against
      its plain version over the S*B lanes as in phase 3; the split output
      against the unsplit Q32 program on the same tables (< -90 dB). Times
-     of both kernels beside their plain versions'.
+     of both kernels beside their plain versions'. Kernel 2's bound counts
+     the function's own operations per sample (the chain, the Q32 sum and
+     a compare and select that keep the element index), with the count
+     that charged a binary search per sample printed beside it; its time
+     is its own C launch repeated between two CUDA events, beside one
+     wrapper call's (which counts the wrapper's host work too).
   7. end to end — host stages, synthesize_batch(64 texts) and
      synthesize(2 s text) wall times and aggregate x realtime, each beside
      the card's name and power limit.
@@ -41,8 +46,10 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      plain version on the core program's own streams at the phase-4 texts,
      unsplit (64 lanes) and at the core route's split (S*64 lanes): the
      first 3 blocks of 4096 samples with the state carried, audio and final
-     state bit-equal; its time per block beside one plain run and the
-     bound.
+     state bit-equal; its time per block (its C launch repeated, beside one
+     wrapper call) beside one plain run and the bound; its launch geometry
+     (blocks, threads, dynamic shared bytes, registers, blocks per SM,
+     tensor copies or 4-byte cp.async).
   9. the core path — synthesize_batch(64 texts, device="cuda",
      backend="core") must launch synth_core and neither other kernel;
      outputs finite, of length floor(cum_length[-1] * sr); "ae","ea" held
@@ -91,7 +98,9 @@ split's, with the unsplit time beside it; synth_core: one launch of the
 core route, with the per-call time and the unsplit launch beside it;
 fused_synth_carry: one tick at N = 512, with N = 128 beside it;
 fused_synth_track: the long-form split's lanes; fma_peak: the mul_add
-variant, with the fma variant beside it). bound_ms states operations
+variant, with the fma variant beside it); phase_q32_pre and synth_core
+also carry their launch geometry with ptxas's registers per template
+instance (`geometry`) and their wrapper call's time (`call_ms`). bound_ms states operations
 against the card's peak FP32 instruction rate, 33.5e12 per second: half the
 data sheet's 67 TFLOP/s, which counts an FMA as two, while the counts here
 are one per instruction. bound_measured_ms states them against the mul_add
@@ -111,6 +120,7 @@ chiprun_out/chip_smoke_scaling.json.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -158,6 +168,11 @@ SEQ_OPS = 18
 FUSED_OPS = 10 + 17 + 8 + 3 + 9 + 8 * (75 + 13)
 #  - phase_q32_pre.cu beyond seq_freq: the Q32 scale, truncation and add
 PRE_OPS = 3
+#  - the element index as the function needs it, not as a kernel happens to
+#    find it: the ends are non-decreasing in the sample, so one compare with
+#    the next end and a select per sample keep the count (the binary search
+#    per sample, 3 per step, is how kernel 1 and the first kernel 2 found it)
+ELEM_OPS = 2
 #  - fused_synth.cu's carry mode beyond FUSED_OPS: the jitter step (add,
 #    compare, subtract, cell increment)
 JITTER_OPS = 4
@@ -211,6 +226,22 @@ def bench_texts():
 def search_steps(E):
     """Steps of the kernels' binary search over E element ends."""
     return int(E).bit_length()
+
+
+def ptxas_registers(log, name):
+    """{entry: registers} from a ptxas log for the kernels whose mangled
+    name holds `name` (one entry per template instance)."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None and name in entry:
+            out[entry] = int(m.group(1))
+            entry = None
+    return out
 
 
 def nbytes(*tensors):
@@ -346,7 +377,12 @@ def main():
     import grail_tpu_torch as g
     import grail_tpu_torch.api as papi
     from grail_tpu_torch.api import BLOCK_SIZE, WARMUP, _round_up
+    from grail_tpu_torch.benchmarks import kernels23_ab as k23
     from grail_tpu_torch.synth import kernel_fused as kf
+
+    regs = {name: ptxas_registers(_build.build_info["log"], name)
+            for name in ("phase_q32_pre_kernel", "synth_core_kernel")}
+    print(f"[2 build] ptxas registers by entry: {regs}", flush=True)
     from grail_tpu_torch.synth.schedule import device_window
     from grail_tpu_torch.utils import sample_error_db
 
@@ -526,15 +562,28 @@ def main():
     if not torch.equal(q_k, q_p):
         bad = int((q_k != q_p).sum())
         raise AssertionError(f"[6] phase_q32_pre: {bad} seam phases differ")
-    pre_ms = median_ms(lambda: kf.phase_q32_pre_cuda(tables, *pre, T_))
-    pre_bound = bound(
-        nbytes(tables.n, tables.scal, tables.latp, tables.par) + T_ * 8
-        + B * (T_ // kf.CHUNK_PRE) * 4,
-        B * T_ * (SEQ_OPS + 3 * search_steps(tables.n.shape[1]) + PRE_OPS))
-    print(f"[6 split] phase_q32_pre B={B} T={T_}: [{T_ // BLOCK_SIZE}, {B}] "
-          f"seam phases bit-equal to plain; kernel {pre_ms} ms (median of "
-          f"{REPS}), plain PyTorch {pre_plain_ms} ms (one run); bound "
-          f"{bound_text(pre_bound)}; card {card}", flush=True)
+    # the kernel's own time: its C launch repeated between two events; one
+    # wrapper call between two events also counts the wrapper's host work
+    pre_ms = k23.kernel_ms(2, kf.phase_q32_pre_cuda, (tables, *pre, T_), 20)
+    pre_call_ms = median_ms(lambda: kf.phase_q32_pre_cuda(tables, *pre, T_))
+    E_, W_ = tables.n.shape[1], tables.latp.shape[1]
+    pre_bytes = (nbytes(tables.n, tables.scal, tables.latp, tables.par)
+                 + T_ * 8 + B * (T_ // kf.CHUNK_PRE) * 4)
+    pre_bound = bound(pre_bytes, B * T_ * (SEQ_OPS + ELEM_OPS + PRE_OPS))
+    # the count before it was restated: a binary search per sample
+    pre_bound_search = bound(
+        pre_bytes, B * T_ * (SEQ_OPS + 3 * search_steps(E_) + PRE_OPS))
+    pre_geo = kf.phase_q32_pre_geometry(B, E_, W_, T_, dev)
+    pre_geo["ptxas_registers"] = regs["phase_q32_pre_kernel"]
+    print(f"[6 split] phase_q32_pre B={B} T={T_} E={E_} W={W_}: "
+          f"[{T_ // BLOCK_SIZE}, {B}] seam phases bit-equal to plain; kernel "
+          f"{pre_ms} ms (20 launches per event pair, median of 5; one "
+          f"wrapper call {pre_call_ms} ms), plain PyTorch {pre_plain_ms} ms "
+          f"(one run); bound {bound_text(pre_bound)} at "
+          f"{SEQ_OPS + ELEM_OPS + PRE_OPS} operations a sample (counted with "
+          f"a binary search per sample, {SEQ_OPS + 3 * search_steps(E_) + PRE_OPS}: "
+          f"{pre_bound_search[0]} ms); launch {pre_geo}; card {card}",
+          flush=True)
     sf0, si0 = zero_state()
     for s in range(1, S):
         n = s * (T_ // S) - WARMUP
@@ -671,7 +720,8 @@ def main():
     core_solo_ms = host_ms(lambda: g.synthesize(
         SOLO_TEXT, device="cuda", backend="core"), sync=True)
     print(f"[10 core timing] kernel 3 per block ({core_main['lanes']} lanes "
-          f"x {BLOCK_SIZE}) {core_main['ms']} ms (median of {REPS}), per "
+          f"x {BLOCK_SIZE}) {core_main['ms']} ms (its C launch, 10 per event "
+          f"pair, median of 5), per "
           f"call {core_call_ms} ms (the sum over its {core_calls} launches "
           f"in one core program run, median of {REPS} runs); unsplit per "
           f"block ({B} lanes) {core['unsplit']['ms']} ms, per call "
@@ -713,13 +763,16 @@ def main():
          "ms": pre_ms, "plain_ms": pre_plain_ms,
          "bound_ms": pre_bound[0], "bound_by": pre_bound[1],
          "bound_measured_ms": pre_bound[2],
-         "library_ms": None, "shape": [B, T_]},
+         "bound_ms_binary_search": pre_bound_search[0],
+         "call_ms": pre_call_ms,
+         "library_ms": None, "shape": [B, T_], "geometry": pre_geo},
         {"name": "synth_core", "route": "cuda",
          "source": "grail_tpu_torch/synth/csrc/synth_core.cu",
          "replaces": "grail_tpu/synth/kernel.py:85",
          "launches": launches_c["synth_core"],
          "max_abs_err": core_main["max_abs"],
-         "ms": core_main["ms"], "plain_ms": core_main["plain_ms"],
+         "ms": core_main["ms"], "call_ms": core_main["call_ms"],
+         "plain_ms": core_main["plain_ms"],
          "bound_ms": core_main["bound"][0],
          "bound_by": core_main["bound"][1],
          "bound_measured_ms": core_main["bound"][2], "library_ms": None,
@@ -729,7 +782,10 @@ def main():
          "unsplit_per_call_ms": unsplit_call_ms,
          "unsplit_plain_ms": core["unsplit"]["plain_ms"],
          "unsplit_bound_ms": core["unsplit"]["bound"][0],
-         "unsplit_shape": [BLOCK_SIZE, B]},
+         "unsplit_shape": [BLOCK_SIZE, B],
+         "geometry": dict(core_main["geometry"],
+                          ptxas_registers=regs["synth_core_kernel"]),
+         "unsplit_geometry": core["unsplit"]["geometry"]},
         {"name": "fused_synth_carry", "route": "cuda",
          "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
          "replaces": "grail_tpu/synth/kernel_fused.py:420",
@@ -1084,16 +1140,25 @@ def core_check(label, setup, lanes, T, card):
         state = SynthState(phase=phase, filter_state_a=k[1].T,
                            filter_state_b=k[2].T, filter_state_c=k[3].T,
                            seed=seed)
-    ms = median_ms(lambda: pk.synth_core_cuda(streams, lp, b, c))
+    from grail_tpu_torch.benchmarks import kernels23_ab as k23
+
+    # the kernel's own time (its C launch repeated between two events) and
+    # one wrapper call's, which counts the wrapper's host work too
+    ms = k23.kernel_ms(3, pk.synth_core_cuda, (streams, lp, b, c), 10)
+    call_ms = median_ms(lambda: pk.synth_core_cuda(streams, lp, b, c))
     bnd = bound(nbytes(*streams, lp, b, c) + BLOCK_SIZE * lanes * 4
                 + nbytes(lp, b, c), BLOCK_SIZE * lanes * CORE_OPS)
+    geo = pk.synth_core_geometry(lanes, streams[0].device)
     out = {"lanes": lanes, "nb": setup.nb, "T": T, "ms": ms,
-           "plain_ms": plain_ms, "max_abs": max_abs, "bound": bnd}
+           "call_ms": call_ms, "plain_ms": plain_ms, "max_abs": max_abs, "bound": bnd,
+           "geometry": geo}
     print(f"{label}: synth_core {lanes} lanes x {BLOCK_SIZE} samples, "
           f"{n_check} blocks with the state carried: audio and final lp, b, "
           f"c bit-equal to the plain version; kernel {ms} ms per block "
-          f"(median of {REPS}); plain PyTorch {plain_ms} ms per block (one "
-          f"run); bound {bound_text(bnd)}; card {card}", flush=True)
+          f"(10 launches per event pair, median of 5; one wrapper call "
+          f"{call_ms} ms); plain PyTorch {plain_ms} ms per block (one "
+          f"run); bound {bound_text(bnd)}; launch {geo}; card {card}",
+          flush=True)
     return out
 
 

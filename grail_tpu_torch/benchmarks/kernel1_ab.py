@@ -69,8 +69,8 @@ def _card() -> str:
 
 
 def _load(src: Path, name: str, include: Path) -> ctypes.CDLL:
-    """Build one fused_synth.cu (its headers in `include`) into a library of
-    its own and bind its launch function."""
+    """Build one kernel source (its headers in `include`) into a library of
+    its own and bind the launch functions it defines."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _build.BUILD_DIR / name
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
@@ -81,27 +81,52 @@ def _load(src: Path, name: str, include: Path) -> ctypes.CDLL:
                            f"{res.stderr}")
     print(json.dumps({"built": str(src), "ptxas": [
         ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-        if "registers" in ln]}), flush=True)
+        if "registers" in ln or "Compiling entry" in ln]}), flush=True)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.grail_fused_synth.argtypes = [p] * 18 + [i] * 8 + [ctypes.c_float, p]
-    lib.grail_fused_synth.restype = i
+    argtypes = {"grail_fused_synth": [p] * 18 + [i] * 8 + [ctypes.c_float, p],
+                "grail_phase_q32_pre": [p] * 7 + [i] * 4 + [p],
+                "grail_synth_core": [p] * 14 + [i] * 2 + [p],
+                "grail_phases_read": [p, i], "grail_phases_clear": []}
+    text = src.read_text()
+    for fn, types in argtypes.items():
+        if f"{fn}(" in text:
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = i
     return lib
 
 
 class _Recorder:
-    """Stands in for the library inside fused_synth_cuda and keeps the
-    arguments of its launch."""
+    """Stands in for the package's library inside a wrapper: forwards every
+    call to `lib` and keeps the arguments of the launch named `fn`."""
 
-    def __init__(self, lib):
-        self.lib, self.argv = lib, None
-
-    def grail_fused_synth(self, *argv):
-        self.argv = argv
-        return self.lib.grail_fused_synth(*argv)
+    def __init__(self, lib, fn: str):
+        self.lib, self.fn, self.argv = lib, fn, None
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
+        target = getattr(self.lib, name)
+        if name != self.fn:
+            return target
+
+        def call(*argv):
+            self.argv = argv
+            return target(*argv)
+
+        return call
+
+
+def _record(lib, fn: str, call):
+    """(the C arguments that call() passes to the library's `fn`, with `lib`
+    standing in for the library, and call()'s outputs as a tuple, kept
+    alive: the arguments point into them)."""
+    rec = _Recorder(lib, fn)
+    saved = _build._lib
+    _build._lib = rec
+    try:
+        outs = call()
+    finally:
+        _build._lib = saved
+    return rec.argv, outs if isinstance(outs, tuple) else (outs,)
 
 
 def _ms(fn, reps: int, rounds: int = 5) -> float:
@@ -193,18 +218,12 @@ def shapes(dev):
 
 
 def _argv(lib, args, kw):
-    """The C arguments fused_synth_cuda passes for (args, kw), and its
-    outputs (kept alive: the arguments point into them)."""
+    """The C arguments fused_synth_cuda passes for (args, kw), launched
+    through `lib`, and its outputs."""
     from ..synth import kernel_fused as kf
 
-    rec = _Recorder(lib)
-    saved = _build._lib
-    _build._lib = rec
-    try:
-        outs = kf.fused_synth_cuda(*args, **kw)
-    finally:
-        _build._lib = saved
-    return rec.argv, outs
+    return _record(lib, "grail_fused_synth",
+                   lambda: kf.fused_synth_cuda(*args, **kw))
 
 
 def turns(old_src: Path):

@@ -68,8 +68,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.grail_phase_q32_pre.restype = i
     lib.grail_phase_q32_pre_chunk.argtypes = []
     lib.grail_phase_q32_pre_chunk.restype = i
+    lib.grail_phase_q32_pre_geometry.argtypes = ([i] * 4
+                                                 + [ctypes.POINTER(i)] * 4)
+    lib.grail_phase_q32_pre_geometry.restype = i
     lib.grail_synth_core.argtypes = [p] * 14 + [i] * 2 + [p]
     lib.grail_synth_core.restype = i
+    lib.grail_synth_core_geometry.argtypes = [i] + [ctypes.POINTER(i)] * 6
+    lib.grail_synth_core_geometry.restype = i
     lib.grail_fma_peak.argtypes = ([p] * 2 + [i] * 3 + [ctypes.c_float] * 2
                                    + [i, p])
     lib.grail_fma_peak.restype = i

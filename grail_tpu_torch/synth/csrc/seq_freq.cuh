@@ -3,6 +3,14 @@
 // count, cur/next rows, blend alpha, the 4-case pick) and the pitch jitter,
 // for one 1-based absolute sample index k1 of one utterance.
 //
+// It comes in two parts: elem_index (the count of element ends below k1, a
+// binary search) and seq_freq_at (everything after it, given that count).
+// seq_freq is the two in a row, as fused_synth.cu calls it. phase_q32_pre.cu
+// searches once per run of samples and then walks the count forward by
+// comparison, which gives the same count because the ends are
+// non-decreasing; both call the one seq_freq_at, so its rounding is the
+// same in each.
+//
 // Counterpart of grail_tpu/synth/kernel_fused.py::_seq_chunk_core, which the
 // JAX package shares between its two kernels for the same reason: the
 // overlap-save split's segment seams are exact only if the pre-pass
@@ -39,23 +47,28 @@ struct SeqFreq {
   float freq_j;      // jittered carrier frequency (cycles per sample)
 };
 
-// nb: the utterance's E int32 element end samples (non-decreasing); scb its
-// [E][NSCAL] rows; lpb its W-row pitch lattice; (ph, cell) the exact jitter
-// schedule at this sample.
-static __device__ __forceinline__ SeqFreq seq_freq(int k1,
-                                                   const int* __restrict__ nb,
-                                                   const float* __restrict__ scb,
-                                                   int E, float dt,
-                                                   const float* __restrict__ lpb,
-                                                   int W, float jdf, float ph,
-                                                   int cell) {
-  SeqFreq s;
-  // element index = count of end samples below k1
+// The element index of 1-based sample k1: the count of the utterance's E
+// end samples nb (non-decreasing) that lie below k1.
+static __device__ __forceinline__ int elem_index(int k1,
+                                                 const int* __restrict__ nb,
+                                                 int E) {
   int lo = 0, hi = E;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (nb[mid] < k1) lo = mid + 1; else hi = mid;
   }
+  return lo;
+}
+
+// The chain at sample k1 given its element index lo (elem_index). nb: the
+// utterance's E int32 element end samples (non-decreasing); scb its
+// [E][NSCAL] rows; lpb its W-row pitch lattice; (ph, cell) the exact jitter
+// schedule at this sample.
+static __device__ __forceinline__ SeqFreq seq_freq_at(
+    int k1, int lo, const int* __restrict__ nb,
+    const float* __restrict__ scb, int E, float dt,
+    const float* __restrict__ lpb, int W, float jdf, float ph, int cell) {
+  SeqFreq s;
   s.jc = min(lo, E - 1);
   s.jn = min(s.jc + 1, E - 1);
   const bool has_next = s.jc < E - 1;
@@ -76,4 +89,16 @@ static __device__ __forceinline__ SeqFreq seq_freq(int k1,
   const float pitch = (lpb[s.cl] * (1.f - ph) + lpb[s.cl + 1] * ph) * s.vm;
   s.freq_j = fr_e + pitch * jdf;
   return s;
+}
+
+// The chain at sample k1: elem_index, then seq_freq_at.
+static __device__ __forceinline__ SeqFreq seq_freq(int k1,
+                                                   const int* __restrict__ nb,
+                                                   const float* __restrict__ scb,
+                                                   int E, float dt,
+                                                   const float* __restrict__ lpb,
+                                                   int W, float jdf, float ph,
+                                                   int cell) {
+  return seq_freq_at(k1, elem_index(k1, nb, E), nb, scb, E, dt, lpb, W, jdf,
+                     ph, cell);
 }

@@ -44,10 +44,10 @@ from .synthesize import (SynthState, _polyblep, _svf_coeffs, block_noise,
 # Lanes the core program runs at once on the card: the `slots` of the API's
 # split decision for this backend. The prep materializes its seven streams
 # per 4096-sample block, 7 x 4096 x 8 x 4 B = 0.92 MB per lane, and its time
-# grows with lanes x samples, pre-rolls included, while the kernel's time
-# per block is flat up to ~512 lanes (latency-bound) and grows past it: on
-# an H100 the split program at 64 utterances was fastest at 512 lanes, well
-# under the ~6,000 lanes of the kernel the card holds at once (PERF.md).
+# grows with lanes x samples, pre-rolls included, and dominates the
+# program: on an H100 the split program at 64 utterances was fastest at 512
+# lanes (PERF.md), within the 1,056 lanes the kernel holds at once (4 lanes
+# a block, 2 blocks per SM).
 CORE_MAX_LANES = 512
 
 
@@ -152,6 +152,27 @@ def synth_core_cuda(streams, lp: torch.Tensor, b: torch.Tensor,
     return (audio, *outs)
 
 
+def synth_core_geometry(B: int, device) -> dict:
+    """What synth_core_cuda launches on CUDA `device` for B lanes (streams
+    16-byte aligned, as torch allocates them): blocks, threads per block,
+    dynamic shared bytes, the compiled kernel's registers per thread,
+    resident blocks per SM and whether the tensor memory accelerator feeds
+    it (B % 4 == 0) or 4-byte cp.async copies do."""
+    import ctypes
+
+    from ._build import load_library
+
+    lib = load_library()
+    vals = [ctypes.c_int(0) for _ in range(6)]
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.grail_synth_core_geometry(B, *map(ctypes.byref, vals))
+    raise_on(lib, rc, "synth_core geometry query")
+    geo = dict(zip(("blocks", "threads", "dynamic_smem", "registers",
+                    "blocks_per_sm"), (v.value for v in vals)))
+    geo["copies"] = "tma" if vals[5].value else "cp.async 4 B"
+    return geo
+
+
 IMPLEMENTATIONS = {"kernel": synth_core_cuda, "plain": synth_core_reference}
 
 
@@ -174,4 +195,5 @@ def synth_core(elems: SynthesisElem, state: SynthState,
 
 
 __all__ = ["CORE_MAX_LANES", "precompute_streams", "synth_core_reference",
-           "synth_core_cuda", "IMPLEMENTATIONS", "synth_core"]
+           "synth_core_cuda", "synth_core_geometry", "IMPLEMENTATIONS",
+           "synth_core"]

@@ -659,6 +659,25 @@ def fused_synth_geometry(device) -> dict:
             "blocks_per_sm": fused_synth_slots(dev) // sms}
 
 
+def phase_q32_pre_geometry(B: int, E: int, W: int, T: int, device) -> dict:
+    """What phase_q32_pre_cuda launches on CUDA `device` for B utterances
+    of T samples with E elements and W lattice cells: blocks, threads per
+    block, dynamic shared bytes (0: the tables are read from global memory,
+    not staged) and the compiled kernel's registers per thread."""
+    import ctypes
+
+    from ._build import load_library
+
+    lib = load_library()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.grail_phase_q32_pre_geometry(B, E, W, T,
+                                              *map(ctypes.byref, vals))
+    raise_on(lib, rc, "phase_q32_pre geometry query")
+    return dict(zip(("blocks", "threads", "dynamic_smem", "registers"),
+                    (v.value for v in vals)))
+
+
 IMPLEMENTATIONS = {"kernel": fused_synth_cuda, "plain": synth_fused_reference}
 PRE_IMPLEMENTATIONS = {"kernel": phase_q32_pre_cuda,
                        "plain": phase_q32_pre_reference}
@@ -757,4 +776,4 @@ __all__ = ["CHUNK", "CHUNK_PRE", "LAUNCHES", "FusedTables", "FreqChain",
            "synth_fused_reference", "fused_synth_cuda", "IMPLEMENTATIONS",
            "synth_fused", "state_rows", "phase_q32_pre_reference", "phase_q32_pre_cuda",
            "PRE_IMPLEMENTATIONS", "phase_q32_pre_block", "fused_synth_slots",
-           "fused_synth_geometry"]
+           "fused_synth_geometry", "phase_q32_pre_geometry"]

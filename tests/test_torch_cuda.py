@@ -229,6 +229,118 @@ def test_slots_from_the_card(cuda):
     assert S == 8 and S * 64 <= slots
 
 
+def _pre_tables(device, B, E, W, T, seed=0, repeated=False):
+    """Tables the pre-pass reads (n, scal, latp, par; the rest zero) for B
+    utterances of E elements: random non-decreasing ends below T, each
+    utterance's last sample mid-chunk; `repeated` makes elements 1 and E//2
+    zero-length. With W past a few hundred, a random schedule whose cells
+    reach past both ends of the lattice (clamped); else the real one."""
+    rng = np.random.default_rng(seed)
+    ends = np.sort(rng.integers(1, int(T * 0.95), size=(B, E)), axis=1)
+    if repeated:
+        ends[:, 1] = ends[:, 0]
+        ends[:, E // 2] = ends[:, E // 2 - 1]
+    ends[:, -1] = np.maximum(ends[:, -2] if E > 1 else 1,
+                             T - 1000 + rng.integers(0, 500, B))
+    dt = np.float32(1 / 44100)
+    scal = np.zeros((B, E, 4), np.float32)
+    scal[..., 0] = rng.uniform(0.002, 0.006, (B, E))
+    scal[..., 1] = ends * dt
+    scal[..., 2] = rng.uniform(0.01, 0.05, (B, E))
+    scal[..., 3] = rng.integers(0, 2, (B, E))
+    par = np.zeros((B, 4), np.float32)
+    par[:, 0] = rng.uniform(0.0002, 0.0006, B)
+    par[:, 3] = dt
+    F = 8
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    tables = kf.FusedTables(
+        t(ends.astype(np.int32)), t(scal), torch.zeros(B, E, 6, F,
+                                                       device=device),
+        t(rng.standard_normal((B, W)).astype(np.float32) * 0.5),
+        torch.zeros(B, W, F, device=device),
+        torch.zeros(B, W, F, device=device), t(par))
+    if W > 512:
+        sched = (t(rng.random(T).astype(np.float32)),
+                 t(rng.integers(-3, W + 3, T).astype(np.int32)))
+    else:
+        sched = device_window(g.get_voice("generic").jitter_frequency, 0, T,
+                              device)
+    return tables, sched
+
+
+# (B, E, W, chunks, repeated ends): one chunk; 75 chunks at B = 64 (runs of
+# 8 chunks, the last one 3); E = 1; repeated ends; B = 1 over 128 chunks
+# (8 warps a chunk); 2 and 4 warps a chunk; runs of 4 with repeated ends; a
+# lattice too large to stage (read from global memory)
+PRE_CASES = {"one_chunk": (3, 16, 134, 1, False),
+             "b64_partial_run": (64, 16, 134, 75, False),
+             "e1": (2, 1, 10, 5, False),
+             "repeated_ends": (3, 12, 40, 11, True),
+             "b1_128_chunks": (1, 16, 134, 128, False),
+             "b8_two_warps_a_chunk": (8, 16, 134, 80, False),
+             "b4_four_warps_a_chunk": (4, 12, 134, 80, True),
+             "b64_repeated": (64, 9, 134, 19, True),
+             "unstaged_w13000": (2, 8, 13000, 3, False)}
+
+
+@pytest.mark.parametrize("case", sorted(PRE_CASES))
+def test_pre_pass_edges_equal_plain_bitwise(cuda, case):
+    B, E, W, nc, repeated = PRE_CASES[case]
+    T = nc * kf.CHUNK_PRE
+    tables, (phi, cell) = _pre_tables(cuda, B, E, W, T, repeated=repeated)
+    n0 = kf.LAUNCHES["phase_q32_pre"]
+    k = kf.phase_q32_pre_cuda(tables, phi, cell, T)
+    assert kf.LAUNCHES["phase_q32_pre"] == n0 + 1
+    r = kf.phase_q32_pre_reference(tables, phi, cell, T)
+    torch.cuda.synchronize()
+    assert k.shape == (B, nc)
+    assert torch.equal(k, r)
+    # a schedule 4 bytes off 16-byte alignment takes the scalar loads
+    phi2 = torch.cat([phi.new_zeros(1), phi])[1:]
+    cell2 = torch.cat([cell.new_zeros(1), cell])[1:]
+    assert phi2.data_ptr() % 16
+    assert torch.equal(kf.phase_q32_pre_cuda(tables, phi2, cell2, T), r)
+
+
+def test_pre_pass_geometry(cuda):
+    # runs of 8 one-warp chunks at B = 64; a single utterance's few chunks
+    # take 8 warps each, so it still spreads over the card; tables past
+    # 48 KB unstaged
+    geo = kf.phase_q32_pre_geometry(64, 16, 134, 360448, cuda)
+    assert geo["threads"] == 256 and geo["blocks"] == 64 * 44
+    assert geo["dynamic_smem"] == (16 * 5 + 134) * 4
+    assert 0 < geo["registers"] <= 255
+    solo = kf.phase_q32_pre_geometry(1, 16, 134, 131072, cuda)
+    assert solo["threads"] == 256 and solo["blocks"] == 128
+    big = kf.phase_q32_pre_geometry(2, 8, 13000, 3072, cuda)
+    assert big["dynamic_smem"] == 0
+
+
+@pytest.mark.parametrize("texts,S", [(("aea",), 32),
+                                     (tuple(("aeae" * 4)[:8 + (i % 8)]
+                                            for i in range(64)), 8)],
+                         ids=["solo_s32", "b64_s8"])
+def test_seam_phase_at_main_path_geometry(cuda, texts, S):
+    # the seams of the main path's two splits (B = 1 with 8 warps a chunk,
+    # B = 64 in runs of 8 chunks) equal unsplit kernel 1's Q32 phase bit
+    # for bit
+    tables, pre, _, T = _split_setup(cuda, S, texts, list(range(len(texts))))
+    q = kf.phase_q32_pre_block(tables, pre, T, papi.BLOCK_SIZE, "kernel")
+    B = len(texts)
+    sf = torch.zeros(B, 24, device=cuda)
+    si = torch.zeros(B, 3, dtype=torch.int32, device=cuda)
+    for s in (2, S // 2, S - 1):    # segment 1 of the solo split starts at 0
+        n = s * (T // S) - papi.WARMUP
+        _, _, si_o = kf.fused_synth_cuda(tables, pre[0][:n], pre[1][:n],
+                                         sf, si, n, False)
+        torch.cuda.synchronize()
+        assert torch.equal(si_o[:, 0].to(torch.int64) & 0xFFFFFFFF,
+                           q[n // papi.BLOCK_SIZE])
+
+
 def _edge_case(cuda, mode, T):
     """Kernel 1's arguments in `mode` for lanes of T samples: (args, kw,
     launch counter). q32 and kcar: three utterances sharing a [T] schedule,
@@ -355,6 +467,76 @@ def test_core_kernel_state_continues(cuda):
     assert torch.equal(torch.cat([first[0], second[0]]), whole[0])
     for x, y in zip(second[1:], whole[1:]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("T", [1, 31, 100, 4096])
+@pytest.mark.parametrize("B", [1, 3, 5, 37, 512, 513])
+def test_core_ring_equals_plain_bitwise(cuda, B, T):
+    # tensor copies at B % 4 == 0 (steps past T zero-filled), 4-byte
+    # copies with the lanes past B zero-filled otherwise; T below one
+    # stage, between stages, and many
+    from grail_tpu_torch.synth import kernel as pk
+
+    streams, lp, b, c = _core_streams(cuda, B, T, seed=B + T)
+    k = pk.synth_core_cuda(streams, lp, b, c)
+    r = pk.synth_core_reference(streams, lp, b, c)
+    torch.cuda.synchronize()
+    for x, y in zip(k, r):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("B", [5, 512])
+def test_core_state_continues_across_stages(cuda, B):
+    # launches split at 37 and 37 + 70 samples (not multiples of a stage)
+    # with the state carried equal one launch
+    from grail_tpu_torch.synth import kernel as pk
+
+    streams, lp, b, c = _core_streams(cuda, B, 300, seed=2)
+    whole = pk.synth_core_cuda(streams, lp, b, c)
+    outs, state = [], (lp, b, c)
+    for lo, hi in ((0, 37), (37, 107), (107, 300)):
+        part = pk.synth_core_cuda([s[lo:hi] for s in streams], *state)
+        outs.append(part[0])
+        state = part[1:]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs), whole[0])
+    for x, y in zip(state, whole[1:]):
+        assert torch.equal(x, y)
+
+
+def test_core_misaligned_streams_take_the_narrow_copies(cuda):
+    # B % 4 == 0 but a stream 4 bytes off 16-byte alignment: no tensor map
+    # can describe it, so the 4-byte copies run
+    from grail_tpu_torch.synth import kernel as pk
+
+    streams, lp, b, c = _core_streams(cuda, 8, 100, seed=3)
+    shifted = []
+    for s in streams:
+        buf = torch.empty(s.numel() + 1, device=cuda)
+        x = buf[1:].view(s.shape)
+        x.copy_(s)
+        shifted.append(x)
+    assert shifted[0].data_ptr() % 16 and shifted[0].is_contiguous()
+    k = pk.synth_core_cuda(shifted, lp, b, c)
+    r = pk.synth_core_reference(streams, lp, b, c)
+    torch.cuda.synchronize()
+    for x, y in zip(k, r):
+        assert torch.equal(x, y)
+
+
+def test_core_geometry(cuda):
+    # 4 lanes per block: a consumer warp of 8 formants x 4 lanes and a
+    # producer warp; the core route's 512 lanes give 128 blocks; the ring
+    # leaves room for 2 blocks per SM
+    from grail_tpu_torch.synth import kernel as pk
+
+    geo = pk.synth_core_geometry(512, cuda)
+    assert geo["blocks"] == 128 and geo["threads"] == 64
+    assert geo["copies"] == "tma" and geo["blocks_per_sm"] >= 2
+    assert geo["dynamic_smem"] > 48 * 1024
+    assert 0 < geo["registers"] <= 255
+    odd = pk.synth_core_geometry(513, cuda)
+    assert odd["blocks"] == 129 and odd["copies"] == "cp.async 4 B"
 
 
 def test_core_wrapper_rejects_bad_inputs(cuda):

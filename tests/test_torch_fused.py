@@ -219,3 +219,43 @@ def test_kernel1_ab_stamps_the_checkout_kernel(tmp_path):
     # no card here: the script refuses before it builds anything
     assert ab.main(["turns", str(tmp_path / "old.cu")]) == 1
     assert ab.main(["nosuch", "x"]) == 2
+
+
+@pytest.mark.parametrize("kernel,fname", [(2, "phase_q32_pre.cu"),
+                                          (3, "synth_core.cu")])
+def test_kernels23_ab_stamps_the_checkout_kernels(kernel, fname):
+    # benchmarks/kernels23_ab.py's `phases` patches clock64() stamps into
+    # copies of kernels 2 and 3 at fixed anchors: the checkout's sources
+    # must match the walking / ring versions' anchors exactly once each
+    from pathlib import Path
+
+    from grail_tpu_torch.benchmarks import kernels23_ab as ab
+
+    src = (Path(pk.__file__).parent / "csrc" / fname).read_text()
+    text, names = ab._stamped(src, kernel)
+    assert names == ab.SCHEDULES[kernel][1][1]
+    assert text.count("clock64()") >= 3 and "grail_phases_clear" in text
+    with pytest.raises(ValueError, match="anchors"):
+        ab._stamped(src.replace(ab.SCHEDULES[kernel][1][0][1][0], ""),
+                    kernel)
+
+
+def test_kernels23_ab_needs_a_card_and_no_jax():
+    # without a card the script exits 1 before it builds anything, and it
+    # loads no JAX module on the way
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys; from grail_tpu_torch.benchmarks import kernels23_ab "
+            "as ab; rc = ab.main(['turns', 'build/none']); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'grail_tpu')); assert not bad, bad; "
+            "assert ab.main(['nosuch', 'x']) == 2; sys.exit(rc)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 1, res.stderr
+    assert "needs a CUDA device" in res.stderr
+    assert "jax" not in res.stderr.lower()

@@ -46,14 +46,40 @@ TEXTS = ["ae", "ea"]
 SEEDS = [0, 1]
 
 
-def _case(S, rate=None, voices=("generic", "generic")):
-    """JAX and port inputs for TEXTS split into S segments."""
+def _one_element(s):
+    """The score cut to its longest sounding element alone (E = 1)."""
+    j = int(np.argmax(np.asarray(s.length) * np.asarray(s.has_sound)))
+    return _rebuild(s, slice(j, j + 1), None)
+
+
+def _zero_lengths(s):
+    """The score with its interior element 1 made zero-length: its end
+    repeats the end before it."""
+    return _rebuild(s, slice(None), [1])
+
+
+def _rebuild(s, keep, zero):
+    length = np.asarray(s.length, np.float32)[keep].copy()
+    if zero:
+        length[zero] = 0.0
+    return s._replace(
+        elem=type(s.elem)(*(np.asarray(f)[keep] for f in s.elem)),
+        has_sound=np.asarray(s.has_sound)[keep], length=length,
+        blend_length=np.asarray(s.blend_length)[keep],
+        cum_length=np.cumsum(length, dtype=np.float32))
+
+
+def _case(S, rate=None, voices=("generic", "generic"), edit=None):
+    """JAX and port inputs for TEXTS split into S segments; `edit` changes
+    each padded JAX score before both sides read it."""
     vs = [get_voice(v) for v in voices]
     if rate:
         vs = [v.resampled(float(rate)) for v in vs]
     sr = float(vs[0].sample_rate)
     E = max(japi.text_to_score(t, v).num_elems for t, v in zip(TEXTS, vs))
     scores = [japi.text_to_score(t, v, pad_to=E) for t, v in zip(TEXTS, vs)]
+    if edit is not None:
+        scores = [edit(sc) for sc in scores]
     Ns = [japi._score_num_samples(s, sr) for s in scores]
     T = japi._round_up(max(Ns), S * japi.BLOCK_SIZE)
     inc = vs[0].jitter_frequency
@@ -170,7 +196,23 @@ def test_pre_pass_plain_matches_jax_kernel(rate):
     frequency chain, so a few samples' trunc(freq * 2^32) differ by one unit
     and the sums by a few dozen units of 2^-32. On the card the kernel and
     this plain version agree bit for bit (tests/test_torch_cuda.py)."""
-    c = _case(4, rate)
+    _pre_pass_vs_jax(_case(4, rate))
+
+
+@pytest.mark.parametrize("edit", [_one_element, _zero_lengths],
+                         ids=["e1", "repeated_ends"])
+def test_pre_pass_plain_matches_jax_kernel_edge_scores(edit):
+    # one element per utterance, and zero-length elements whose ends repeat
+    # (the card's kernel walks its element index over those), with the
+    # bound and its reason as above
+    n = _pre_pass_vs_jax(_case(4, edit=edit)).n
+    if edit is _one_element:
+        assert n.shape[1] == 1
+    else:
+        assert bool((n[:, 1:] == n[:, :-1]).any())
+
+
+def _pre_pass_vs_jax(c):
     T = c["T"]
     pre, _, _ = japi._split_sched(c["inc"], T, 4)
     want = np.asarray(phase_q32_pre_block(
@@ -184,6 +226,7 @@ def test_pre_pass_plain_matches_jax_kernel(rate):
     d = (got - want) % 2 ** 32
     assert np.minimum(d, 2 ** 32 - d).max() <= 256
     assert (got[0] == 0).all()
+    return tables
 
 
 def test_seam_phase_equals_unsplit_final_phase():
