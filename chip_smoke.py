@@ -66,8 +66,9 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      and no other kernel, give finite audio, and ticks 20-29 are held bit
      for bit (audio, sf, si) against the plain version on the card from
      the same state. Then at N = 128 and 512 (60 s windows, every session
-     fed): a torch.profiler window of 20 steady-state ticks that must see
-     the 20 launches and no host->device copy, and the times: the carry kernel per tick beside
+     fed): a torch.profiler window of 20 steady-state ticks, after a
+     warm-up step of the profiler, that must see the 20 launches and no
+     host->device copy, and the times: the carry kernel per tick beside
      the plain version and the bound, _prepare_tick's fast path, full pass
      and full pass with one feed, read_block, the tick_pipelined period,
      read_blocks(8), each as a share of the 23.22 ms block budget.
@@ -91,12 +92,30 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      the pre-pass cold and warm (it is memoized), the track's upload, the
      track route's program and kernel, the unsplit kcar kernel, end to
      end. Then one REPL line (interactive.main fed "hello") on the card.
+ 15. serve mode (StreamPool.serve_start / serve_tick / serve_stop), the
+     served tick one replay of a CUDA graph captured on the frontend
+     thread: at N = 512, then 128 (plain, english, block 1,024, 60 s
+     windows, every session fed, pin_elems=64), 40 served ticks with the
+     staggered feeds published by explicit _serve_build() calls, bit-equal
+     (audio, sf, si) to a twin pool's read_block at every tick and ticks
+     15-24 to the plain version from the same state; exactly one
+     fused_synth_carry per served tick and no other kernel; a
+     torch.profiler window of 20 steady served ticks that must see the 20
+     launches and 0 host->device copies, with the device idle share beside
+     phase 11's; serve_tick's host time per call (p50, p99 of 200), the
+     graph replay, serve_tick and the eager tick by CUDA events,
+     _serve_build with and without a feed; a paced run of 10 s at the
+     23.22 ms block period with the frontend on its own period and a feed
+     every 7 periods (the cadence of grail_tpu's benchmarks/latency.py):
+     the frontend cycles, the captures (all on the frontend thread) and
+     the deadline misses at sink depth 2, which must be 0.
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
 split's, with the unsplit time beside it; synth_core: one launch of the
 core route, with the per-call time and the unsplit launch beside it;
-fused_synth_carry: one tick at N = 512, with N = 128 beside it;
+fused_synth_carry: one tick at N = 512, with N = 128 beside it, and
+phase 15's served numbers as served_*;
 fused_synth_track: the long-form split's lanes; fma_peak: the mul_add
 variant, with the fma variant beside it); phase_q32_pre and synth_core
 also carry their launch geometry with ptxas's registers per template
@@ -206,6 +225,16 @@ SLIDE_HORIZON_S = 0.3       # main path: lattice windows of 16 cells, so
 PROFILE_TICKS = 20          # steady-state ticks under torch.profiler
 PIPE_TICKS = 50             # tick_pipelined periods timed
 READ_AHEAD = 8              # read_blocks(k)
+# serve mode (phase 15): the serving cell at full width, N = 512 then 128,
+# pin_elems = 64 (the cell's E), 60 s windows, every session fed as above
+SERVED_TICKS = 40           # served ticks held against a twin's read_block
+SERVED_PLAIN = range(15, 25)  # of them, held against the plain version
+HOST_CALLS = 200            # serve_tick host times (p50, p99)
+PACED_S = 10.0              # the paced run: real time held for 10 s,
+FEED_EVERY = 7              # a feed every 7 block periods at most (the
+#                             cadence of grail_tpu's benchmarks/latency.py,
+#                             max(7, ceil(12 / (N * period))))
+SINK_DEPTH = 2              # tick k's audio is due k + 2 block periods in
 SERVE_TEXTS = (              # each opens on a vowel, so it sounds early
     "all good things come to those who wait",
     "every call is important to us",
@@ -739,6 +768,10 @@ def main():
     # ---- 13-14: the solo long-form route --------------------------------
     lf = long_form(card, dev, drive, check)
 
+    # ---- 15: serve mode (the served tick as a CUDA graph) ----------------
+    served = serve_mode(card, dev, drive, serve)
+    v512, v128 = (served["by_n"][n] for n in SERVE_N[::-1])
+
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
 
@@ -800,7 +833,24 @@ def main():
          "n128_plain_ms": s128["plain_ms"],
          "n128_bound_ms": s128["bound_ms"],
          "read_blocks8_kernel_ms": s512["read_blocks8_kernel_ms"],
-         "read_blocks8_host_ms": s512["read_blocks8_ms"]},
+         "read_blocks8_host_ms": s512["read_blocks8_ms"],
+         "served_launches": served["launches"],
+         "served_max_abs_err": v512["max_abs"],
+         "served_replay_ms": v512["replay_ms"],
+         "served_tick_ms": v512["tick_ms"],
+         "served_eager_ms": v512["eager_ms"],
+         "served_host_p50_ms": v512["host_p50_ms"],
+         "served_host_p99_ms": v512["host_p99_ms"],
+         "served_idle_share": v512["idle_share"],
+         "read_block_idle_share": v512["read_block_idle_share"],
+         "served_capture_ms": v512["capture_p50_ms"],
+         "served_build_fed_ms": v512["build_fed_ms"],
+         "served_misses_depth2": v512["misses_depth2"],
+         "n128_served_replay_ms": v128["replay_ms"],
+         "n128_served_host_p50_ms": v128["host_p50_ms"],
+         "n128_served_host_p99_ms": v128["host_p99_ms"],
+         "n128_served_idle_share": v128["idle_share"],
+         "n128_served_misses_depth2": v128["misses_depth2"]},
         {"name": "fused_synth_track", "route": "cuda",
          "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
          "replaces": "grail_tpu/synth/kernel_fused.py:420",
@@ -1232,6 +1282,60 @@ def device_us(avg):
     return 0.0
 
 
+def profiled_ticks(label, tick):
+    """Run tick() PROFILE_TICKS times under torch.profiler and read the
+    window: host->device and device->host copies, fused_synth_kernel
+    launches as the trace saw them and as the launch count read them, the
+    device time by name, the carry kernel's device time per launch and the
+    device idle share (the window's wall time less its device time). A
+    warm-up step of the profiler (3 ticks, not recorded) comes first:
+    without it traces of 20 ticks missed from 1 to 8 of the window's first
+    kernels. Fails unless both counts are PROFILE_TICKS and no copy went
+    host->device."""
+    import torch
+
+    from grail_tpu_torch.synth import kernel_fused as kf
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(activities=acts, schedule=sched,
+                                acc_events=True) as prof:
+        for _ in range(3):
+            tick()
+        torch.cuda.synchronize()
+        prof.step()
+        l0 = kf.LAUNCHES["fused_synth_carry"]
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_TICKS):
+            tick()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        launched = kf.LAUNCHES["fused_synth_carry"] - l0
+        prof.step()
+    avgs = prof.key_averages()
+    ev = {e.key: e.count for e in avgs}
+    h2d = sum(c for k, c in ev.items() if "HtoD" in k)
+    d2h = sum(c for k, c in ev.items() if "DtoH" in k)
+    kern = sum(c for k, c in ev.items() if "fused_synth_kernel" in k)
+    if kern != PROFILE_TICKS or launched != PROFILE_TICKS or h2d:
+        raise AssertionError(
+            f"{label}: in {PROFILE_TICKS} steady ticks the profiler saw "
+            f"{kern} fused_synth_kernel launches and {h2d} host->device "
+            f"copies; the launch count read {launched}")
+    # device time: the device-side entries (kernels, copies), not the
+    # profiler's own step spans
+    dev_ms = {e.key: device_us(e) / 1e3 for e in avgs
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")}
+    kern_dev_ms = sum(v for k_, v in dev_ms.items()
+                      if "fused_synth_kernel" in k_) / kern
+    return dict(h2d=h2d, d2h=d2h, kernels=kern, window_ms=window_ms,
+                dev_ms=dev_ms, kernel_device_ms=kern_dev_ms,
+                idle=1.0 - sum(dev_ms.values()) / window_ms)
+
+
 def serving(card, dev, drive):
     """Phase 11: the serving path. The main path is StreamPool(512,
     device="cuda") fed staggered texts over SERVE_TICKS ticks with the
@@ -1326,40 +1430,17 @@ def serving(card, dev, drive):
 
         # the profiler window: steady-state ticks copy nothing host->device;
         # the count means something only where the trace saw the launches
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_TICKS):
-                pool.read_block()
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-        avgs = prof.key_averages()
-        ev = {e.key: e.count for e in avgs}
-        h2d = sum(c for k, c in ev.items() if "HtoD" in k)
-        d2h = sum(c for k, c in ev.items() if "DtoH" in k)
-        kern = sum(c for k, c in ev.items() if "fused_synth_kernel" in k)
-        if kern != PROFILE_TICKS:
-            raise AssertionError(f"[11 serving] N={n}: the profiler saw "
-                                 f"{kern} fused_synth_kernel launches in "
-                                 f"{PROFILE_TICKS} ticks")
-        # device time: the device-side entries (kernels, copies)
-        dev_ms = {e.key: device_us(e) / 1e3 for e in avgs
-                  if getattr(e, "device_type", None)
-                  == torch.autograd.DeviceType.CUDA}
-        kern_dev_ms = sum(v for k_, v in dev_ms.items()
-                          if "fused_synth_kernel" in k_) / kern
-        idle = 1.0 - sum(dev_ms.values()) / window_ms
-        if h2d:
-            raise AssertionError(f"[11 serving] N={n}: {h2d} host->device "
-                                 f"copies in {PROFILE_TICKS} steady-state "
-                                 f"ticks")
+        pw = profiled_ticks(f"[11 serving] N={n}", pool.read_block)
+        window_ms, kern_dev_ms, idle = (pw[k] for k in (
+            "window_ms", "kernel_device_ms", "idle"))
+        h2d, d2h, kern = pw["h2d"], pw["d2h"], pw["kernels"]
         print(f"[11 serving] N={n} steady state, {PROFILE_TICKS} ticks under "
               f"torch.profiler: host->device copies {h2d}, device->host "
               f"{d2h}, fused_synth_kernel launches {kern}; "
               f"read_block window {window_ms} ms; carry kernel device time "
               f"{kern_dev_ms} ms per launch; device time by name "
-              f"{json.dumps(dev_ms)}; device idle share {idle}", flush=True)
+              f"{json.dumps(pw['dev_ms'])}; device idle share {idle}",
+              flush=True)
 
         # times
         ins = pool._prepare_tick()
@@ -1437,6 +1518,305 @@ def serving(card, dev, drive):
               f"{json.dumps(share8)}; card {card}", flush=True)
         del pool, ins, ins8
         torch.cuda.empty_cache()
+    return out
+
+
+def serve_mode(card, dev, drive, phase11):
+    """Phase 15: serve mode at the serving cell's full width, N = 512 then
+    128 (voice plain, english, block 1,024, 60 s windows, every session
+    fed, pin_elems = 64). Per N: SERVED_TICKS served ticks with the
+    staggered feeds published by explicit _serve_build() calls, each bit
+    for bit (audio, sf, si) equal to a twin pool's read_block and
+    SERVED_PLAIN of them to the plain version from the same state, one
+    fused_synth_carry launch per served tick and no other kernel; a
+    torch.profiler window of PROFILE_TICKS steady served ticks (0
+    host->device copies, the carry kernel once a tick, the device idle
+    share beside phase 11's); the times (serve_tick's host time per call,
+    p50 and p99 of HOST_CALLS; the graph replay, serve_tick and the eager
+    tick by CUDA events; _serve_build with and without a feed); then a
+    paced run of PACED_S seconds, the frontend thread on its own period
+    and a feeder thread feeding a session every FEED_EVERY block periods
+    (grail_tpu's cadence): the frontend cycles, the capture
+    times on the frontend thread and the deadline misses at sink depth
+    SINK_DEPTH, which must be 0. Returns the numbers."""
+    import gc
+    import queue
+    import random
+    import threading
+
+    import numpy as np
+    import torch
+
+    from grail_tpu_torch.runtime import stream as st
+
+    blk = SERVE_BLOCK
+    period = blk / 44100.0
+    out = {"by_n": {}}
+    for n in SERVE_N[::-1]:
+        texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(n)]
+        label = f"[15 serve mode] N={n}"
+
+        def mk():
+            pool = st.StreamPool(n, voice="plain", language="english",
+                                 block=blk, pin_elems=64)
+            for i in range(0, n, 2):
+                pool.feed(i, texts[i])
+            pool.flush()
+            return pool
+
+        def feed(pool, t):          # the odd sessions join over the ticks
+            if t < SERVE_FEED_TICKS:
+                for i in range(2 * t + 1, n, 2 * SERVE_FEED_TICKS):
+                    pool.feed(i, texts[i])
+                    pool.flush(i)
+
+        # the twin: the same schedule through read_block (eager launches)
+        twin = mk()
+        twin._prepare_tick()    # serve_start's first host pass, before the
+        ref = []                # feeds of tick 0, runs here too
+        for t in range(SERVED_TICKS):
+            feed(twin, t)
+            a = twin.read_block(sync=False)
+            ref.append((a, twin._sf.clone(), twin._si.clone()))
+        del twin
+        pool = mk()
+        t0 = time.perf_counter()
+        pool.serve_start(period=9999)   # the frontend idles: builds below
+        start_ms = (time.perf_counter() - t0) * 1e3
+
+        def served():
+            max_abs = 0.0
+            for t in range(SERVED_TICKS):
+                feed(pool, t)
+                pool._serve_build()
+                if t in SERVED_PLAIN:
+                    sf0, si0 = pool._sf.clone(), pool._si.clone()
+                a = pool.serve_tick()
+                for name, x, y in zip(("audio", "sf", "si"),
+                                      (a, pool._sf, pool._si), ref[t]):
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            f"{label} tick {t}: the served {name} differs "
+                            f"from the twin's read_block")
+                if t in SERVED_PLAIN:
+                    # the same tick's inputs: the adopted set, the offsets
+                    # before their advance
+                    ins = dict(pool._serve_cur["dev"],
+                               offsets=pool._serve_off - blk)
+                    plain = st._tick("plain", ins, sf0, si0, blk)
+                    for name, x, y in zip(("audio", "sf", "si"),
+                                          (a, pool._sf, pool._si), plain):
+                        max_abs = max(max_abs, float(
+                            (x.double() - y.double()).abs().max()))
+                        if not torch.equal(x, y):
+                            raise AssertionError(
+                                f"{label} tick {t}: the served {name} "
+                                f"differs from the plain version's")
+            return max_abs
+
+        max_abs, counts = drive(f"serve mode N={n}", served,
+                                {"fused_synth_carry"})
+        if counts["fused_synth_carry"] != SERVED_TICKS:
+            raise AssertionError(f"{label}: {counts['fused_synth_carry']} "
+                                 f"carry launches for {SERVED_TICKS} served "
+                                 f"ticks")
+        audio = torch.cat([r[0] for r in ref], dim=1)
+        sounding = int((audio.abs().amax(dim=1) > 0.01).sum())
+        if not bool(torch.isfinite(audio).all()) or sounding < n // 4:
+            raise AssertionError(f"{label}: audio finite "
+                                 f"{bool(torch.isfinite(audio).all())}, "
+                                 f"{sounding} of {n} sounding")
+        del ref, audio
+        print(f"{label}: StreamPool({n}, pin_elems=64), serve_start "
+              f"{start_ms} ms (the first build, one eager tick, the first "
+              f"capture); {SERVED_TICKS} served ticks with the odd sessions "
+              f"fed over {SERVE_FEED_TICKS} ticks, each published by "
+              f"_serve_build(): launches {counts}; audio, sf and si bit-equal "
+              f"to a twin's read_block at every tick, ticks "
+              f"{SERVED_PLAIN.start}-{SERVED_PLAIN.stop - 1} to the plain "
+              f"version (max-abs {max_abs}); {sounding} of {n} sounding; "
+              f"{pool._serve_captures} graphs captured", flush=True)
+
+        # the profiler window: steady served ticks, each fetched as
+        # read_block fetches it in phase 11
+        pw = profiled_ticks(label, lambda: pool.serve_tick().cpu())
+        window_ms, kern_dev_ms, idle = (pw[k] for k in (
+            "window_ms", "kernel_device_ms", "idle"))
+        h2d, d2h, kern = pw["h2d"], pw["d2h"], pw["kernels"]
+        idle11 = phase11["by_n"][n]["idle_share"]
+        print(f"{label} steady state, {PROFILE_TICKS} served ticks (each "
+              f"fetched with .cpu()) under torch.profiler: host->device "
+              f"copies {h2d}, device->host {d2h}, fused_synth_kernel "
+              f"launches {kern} (the launch count agrees); window "
+              f"{window_ms} ms; carry kernel device time {kern_dev_ms} ms; "
+              f"device time by name {json.dumps(pw['dev_ms'])}; device idle "
+              f"share {idle} (read_block's in phase 11: {idle11})",
+              flush=True)
+
+        # times
+        host = []
+        for _ in range(HOST_CALLS):
+            t0 = time.perf_counter()
+            pool.serve_tick()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        p50, p99 = (float(x) for x in np.percentile(host, [50, 99]))
+        tick_ms = median_ms(pool.serve_tick)
+        cur = pool._serve_cur
+        conv = st._OUTPUTS[pool.output]
+        sf, si, off = (x.clone() for x in (pool._sf, pool._si,
+                                           pool._serve_off))
+        eager_ms = median_ms(lambda: st._served_tick(
+            "kernel", cur["dev"], sf, si, off, blk, conv))
+        replay_ms = median_ms(cur["graph"].replay)   # state moves on: last
+        quiet_ms = host_ms(pool._serve_build)        # nothing to publish
+        k = [0]
+
+        def build_fed():                             # one session's rows
+            k[0] = (k[0] + 1) % n
+            pool.feed(k[0], "a ")
+            pool._serve_build()
+
+        fed_ms = host_ms(build_fed, sync=True)
+        pool.serve_stop()
+
+        # the paced run: this thread holds the real-time schedule, the
+        # frontend runs on its own period, a feeder thread feeds a session
+        # every block period and a sink thread fetches each tick in order.
+        # The garbage collector is off for the run, as in a real-time audio
+        # loop (grail_tpu's benchmarks/latency.py does the same).
+        pool.serve_start()
+        captures, capture = [], pool._serve_capture
+
+        def timed_capture(swap):
+            t0 = time.perf_counter()
+            capture(swap)
+            captures.append((threading.current_thread().name,
+                             (time.perf_counter() - t0) * 1e3))
+
+        pool._serve_capture = timed_capture
+        builds, build = [], pool._serve_build
+
+        def timed_build():
+            t0 = time.perf_counter()
+            published = build()
+            builds.append((time.perf_counter() - t0) * 1e3)
+            return published
+
+        pool._serve_build = timed_build
+        K = int(PACED_S / period)
+        avail, dispatch, call = [None] * K, [None] * K, [None] * K
+        fetched, errors = queue.Queue(), []
+        rng = random.Random(0)
+        t_start = None                  # set once the collector has run
+
+        def sink():
+            while True:
+                item = fetched.get()
+                if item is None:
+                    return
+                kk, a = item
+                h = a.cpu()
+                avail[kk] = time.perf_counter()
+                if not bool(torch.isfinite(h).all()):
+                    errors.append(f"tick {kk} not finite")
+
+        every = max(FEED_EVERY, -(-12.0 // (n * period)))
+
+        def feeder():
+            try:
+                for kk in range(0, K, int(every)):
+                    dt = t_start + (kk + 0.5) * period - time.perf_counter()
+                    if dt > 0:
+                        time.sleep(dt)
+                    i = rng.randrange(n)
+                    pool.feed(i, texts[rng.randrange(n)] + " ")
+                    pool.flush(i)
+            except Exception as e:      # reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=sink),
+                   threading.Thread(target=feeder)]
+        gc.collect()
+        gc.disable()
+        try:
+            t_start = time.perf_counter() + 2 * period
+            for th in threads:
+                th.start()
+            for kk in range(K):
+                target = t_start + kk * period
+                dt = target - time.perf_counter()
+                if dt > 0:
+                    time.sleep(dt)
+                t0 = time.perf_counter()
+                dispatch[kk] = t0 - target
+                a = pool.serve_tick()
+                call[kk] = time.perf_counter() - t0
+                fetched.put((kk, a))
+        finally:
+            fetched.put(None)
+            for th in threads:
+                th.join(timeout=60)
+            gc.enable()
+        frontend_error = pool._serve_error
+        pool.serve_stop()
+        if errors or frontend_error is not None or any(
+                a is None for a in avail):
+            raise AssertionError(f"{label} paced run: {errors}, frontend "
+                                 f"{frontend_error!r}")
+        misses = {d: sum(avail[kk] > t_start + (kk + d) * period
+                         for kk in range(K)) for d in (1, 2, 3)}
+        names = {name for name, _ in captures}
+        cap_ms = [ms for _, ms in captures]
+        if names - {"StreamPool-frontend"}:
+            raise AssertionError(f"{label}: captures on threads {names}")
+        late, calls = sorted(dispatch), sorted(call)
+        fetch = sorted(avail[kk] - t_start - kk * period for kk in range(K))
+        print(f"{label} paced run: {K} ticks at the {period * 1e3} ms block "
+              f"period ({PACED_S} s), a feed every {int(every)} periods, the "
+              f"frontend on its own period: deadline misses at sink depth "
+              f"1/2/3 {misses[1]}/{misses[2]}/{misses[3]}; dispatch late "
+              f"p50 {late[K // 2] * 1e3} ms, max {late[-1] * 1e3} ms; "
+              f"serve_tick p50 {calls[K // 2] * 1e3} ms, p99 "
+              f"{calls[int(K * 0.99)] * 1e3} ms, max {calls[-1] * 1e3} ms; "
+              f"audio on the host after its dispatch time p50 "
+              f"{fetch[K // 2] * 1e3} ms, max {fetch[-1] * 1e3} ms; "
+              f"{len(builds)} frontend cycles, p50 "
+              f"{statistics.median(builds)} ms, max {max(builds)} ms, "
+              f"{sum(b > 2 * period * 1e3 for b in builds)} longer than two "
+              f"block periods; "
+              f"{len(cap_ms)} captures on the frontend thread, p50 "
+              f"{statistics.median(cap_ms) if cap_ms else None} ms, max "
+              f"{max(cap_ms) if cap_ms else None} ms", flush=True)
+        if misses[SINK_DEPTH]:
+            raise AssertionError(f"{label}: {misses[SINK_DEPTH]} deadline "
+                                 f"misses at sink depth {SINK_DEPTH}")
+        row = dict(launches=counts["fused_synth_carry"], max_abs=max_abs,
+                   serve_start_ms=start_ms, host_p50_ms=p50,
+                   host_p99_ms=p99, tick_ms=tick_ms, replay_ms=replay_ms,
+                   eager_ms=eager_ms, kernel_device_ms=kern_dev_ms,
+                   idle_share=idle, read_block_idle_share=idle11,
+                   build_quiet_ms=quiet_ms, build_fed_ms=fed_ms,
+                   capture_p50_ms=(statistics.median(cap_ms) if cap_ms
+                                   else None),
+                   capture_max_ms=max(cap_ms) if cap_ms else None,
+                   captures=len(cap_ms), paced_ticks=K,
+                   misses_depth2=misses[SINK_DEPTH],
+                   profiler=dict(h2d=h2d, d2h=d2h, kernels=kern,
+                                 window_ms=window_ms))
+        out["by_n"][n] = row
+        print(f"{label} times (block budget {period * 1e3} ms): serve_tick "
+              f"host time p50 {p50} ms, p99 {p99} ms ({HOST_CALLS} calls); "
+              f"CUDA events (median of {REPS}): the graph replay {replay_ms} "
+              f"ms, serve_tick (replay and copy-out) {tick_ms} ms, the eager "
+              f"tick (launches op by op) {eager_ms} ms, phase 11's eager "
+              f"carry launch {phase11['by_n'][n]['kernel_ms']} ms; "
+              f"_serve_build with nothing to publish {quiet_ms} ms, with "
+              f"one session fed (scatter into a copy, capture, device work "
+              f"synchronised) {fed_ms} ms; card {card}", flush=True)
+        del pool, cur
+        torch.cuda.empty_cache()
+    out["launches"] = out["by_n"][SERVE_N[-1]]["launches"]
     return out
 
 

@@ -22,15 +22,22 @@ lattice window at row `cell - lat_base`.
     lattices, offsets and the carried state stay on the device; a feed or a
     slide scatters the changed sessions' rows in place, and a steady-state
     tick copies nothing from the host to the device.
+  * Serve mode (`StreamPool.serve_start` / `serve_tick` / `serve_stop`):
+    a frontend thread runs the host pass and publishes table sets; the
+    real-time thread's tick is one replay of a CUDA graph captured for the
+    adopted set (on the CPU, the same tick run eagerly).
 
-The JAX pool's `xla` backend, its mesh sharding and serve mode are not
-ported here; asking for them raises.
+The JAX pool's `xla` backend and its mesh sharding are not ported here;
+asking for them raises: they come with a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
+import threading
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -304,6 +311,19 @@ def _tick(impl: str, dev: dict, sf: torch.Tensor, si: torch.Tensor,
     return kf.IMPLEMENTATIONS[impl](tables, None, None, sf, si, blk, True,
                                     g0=dev["offsets"],
                                     lat_base=dev["lat_base"], inc=dev["inc"])
+
+
+def _served_tick(impl: str, dev: dict, sf: torch.Tensor, si: torch.Tensor,
+                 offsets: torch.Tensor, blk: int, conv):
+    """One served tick into fixed buffers, as serve mode captures it: the
+    carry launch over the table set `dev` from `offsets`, the carried rows
+    written back into `sf` and `si` in place, the offsets advanced in place
+    and the audio converted by `conv` (None for f32). Returns the audio."""
+    out, sf2, si2 = _tick(impl, dict(dev, offsets=offsets), sf, si, blk)
+    sf.copy_(sf2)
+    si.copy_(si2)
+    offsets.add_(blk)
+    return out if conv is None else conv(out)
 
 
 def _jparams(voices, inc):
@@ -996,7 +1016,18 @@ class StreamSession:
         self._residual = (np.asarray(g("residual"), np.float32)
                           if has("residual") else np.empty(0, np.float32))
 
+    def _check_not_serving(self, what: str) -> None:
+        """A pool-owned session shares StreamPool.save/load's torn-state
+        hazard: while serve mode is live the host counters sync only at
+        frontend cycles and the real-time thread writes the pool's rows."""
+        if self._pool_ref is not None and self._pool_ref[0]._serving:
+            raise RuntimeError(
+                f"{what} on a pool-owned session while serve mode is live "
+                "would snapshot/restore a torn state; call "
+                "pool.serve_stop() first")
+
     def save_state(self) -> bytes:
+        self._check_not_serving("save_state()")
         self._materialize_state()
         buf = io.BytesIO()
         np.savez(buf, **self._payload_dict(_host_state(
@@ -1004,6 +1035,7 @@ class StreamSession:
         return buf.getvalue()
 
     def load_state(self, payload: bytes) -> None:
+        self._check_not_serving("load_state()")
         z = np.load(io.BytesIO(payload))
         self._apply_payload(z)
         if self._pool_ref is not None:
@@ -1046,16 +1078,31 @@ class StreamPool:
     (which grail_tpu serves on 'xla') raise ValueError: they come with a
     later slice.
 
+    `pin_elems` pins the element-count bucket E of the device tables (to
+    at least `_bucket(pin_elems)`), so that a session crossing a power of
+    two does not change the tables' shape mid-serving; E grows past the
+    pin only when a score outgrows it.
+
+    Serve mode (serve_start / serve_tick / serve_stop, as grail_tpu's): a
+    frontend thread owns the host pass and publishes table sets; the
+    real-time thread's serve_tick adopts the newest set and runs one tick,
+    on a card one replay of the CUDA graph captured for that set.
+
     Usage:
         pool = StreamPool(8, voice="plain", language="english")
         pool.feed(3, "hello")
         audio = pool.read_block()      # [8, block]
+
+        pool.serve_start()             # strict-deadline serving
+        audio = pool.serve_tick()      # [8, block] on the device
+        pool.serve_stop()
     """
 
     def __init__(self, n: int, voice="generic", language="generic",
                  block: int = 1024, seeds=None, contour: bool = False,
                  speaking_rate: float = 1.0, backend: Optional[str] = None,
                  mesh=None, output: str = "f32",
+                 pin_elems: Optional[int] = None,
                  jitter_horizon_s: float = 60.0, device="cuda"):
         if output not in _OUTPUTS:
             raise ValueError(
@@ -1081,6 +1128,7 @@ class StreamPool:
         self._impl = _impl(self.device)
         self.output = output
         self.backend = backend
+        self.pin_elems = int(pin_elems) if pin_elems else 0
         seeds = list(seeds) if seeds is not None else list(range(n))
         # jitter_horizon_s sizes each session's device-resident lattice
         # window (reserve rows = horizon * sr * jitter rate); smaller
@@ -1113,13 +1161,24 @@ class StreamPool:
         self._lat_dev = None          # (latp, latf, lata) [N, cells(, 8)]
         self._lat_base_dev = None     # [N] int32, published with the window
         self._inflight = None         # depth-2 pipeline: (host audio, event)
-        self._quiet = None            # (until_pos, blk, E, cells): the
+        self._quiet = None            # (until_pos, blk, E, cells, pin): the
         #                               position below which the
         #                               per-session maintenance is a no-op
         self._mut = 0                 # bumped by every session mutation
         self._quiet_mut = -1          # _mut when _dev was last validated
         self._lag_samples = 0         # lockstep counter lag (see
         #                               StreamSession's counter properties)
+        # serve mode (serve_start): the frontend lock (feeds, builds), the
+        # swap lock (the one published set), and the set the real-time
+        # thread has adopted
+        self._serving = False
+        self._serve_thread = None
+        self._serve_lock = threading.Lock()
+        self._swap_lock = threading.Lock()
+        self._swap_pending = None
+        self._serve_cur = None
+        self._serve_ticks = 0         # served ticks (the real-time clock)
+        self._serve_captures = 0      # CUDA graphs captured
         for i, s in enumerate(self.sessions):
             s._pool_ref = (self, i)
 
@@ -1128,12 +1187,21 @@ class StreamPool:
         """The carried jitter state (jphi f32 [N], jcell int32 [N])."""
         return self._si[:, 3].view(torch.float32), self._si[:, 4]
 
+    def _feed_lock(self):
+        """The frontend lock while serve mode is live, else a no-op: a feed
+        must not change a session's elements in the middle of a frontend
+        build. Gated on _serving, which serve_start sets before its first
+        build, so no feed runs unlocked beside that build."""
+        return self._serve_lock if self._serving else contextlib.nullcontext()
+
     def feed(self, i: int, text: str, parse_commands: bool = False) -> None:
-        self.sessions[i].feed(text, parse_commands=parse_commands)
+        with self._feed_lock():
+            self.sessions[i].feed(text, parse_commands=parse_commands)
 
     def flush(self, i: Optional[int] = None) -> None:
-        for s in (self.sessions if i is None else [self.sessions[i]]):
-            s.flush()
+        with self._feed_lock():
+            for s in (self.sessions if i is None else [self.sessions[i]]):
+                s.flush()
 
     def _prepare_tick(self, samples=None) -> dict:
         """Host frontend + (cached) device upload for one tick of `samples`
@@ -1145,7 +1213,8 @@ class StreamPool:
         integer compare (pool._mut, bumped by every revision)."""
         blk = self.block if samples is None else int(samples)
         q = self._quiet
-        if (q is not None and q[1] == blk and self._mut == self._quiet_mut
+        if (q is not None and q[1] == blk and q[4] == self.pin_elems
+                and self._mut == self._quiet_mut
                 and self.sessions[0]._jitter_pos <= q[0]):
             return self._dev
         self._quiet = None
@@ -1156,7 +1225,7 @@ class StreamPool:
 
     def _prepare_tick_full(self, blk: int) -> dict:
         """The full maintenance + upload pass behind _prepare_tick."""
-        E = 16
+        E = max(16, _bucket(self.pin_elems)) if self.pin_elems else 16
         for s in self.sessions:
             s._ensure_audio_horizon(blk)
             s._rebase()
@@ -1171,7 +1240,7 @@ class StreamPool:
         self._quiet = (self.sessions[0]._jitter_pos
                        + min(s._quiet_horizon(blk) - s._jitter_pos
                              for s in self.sessions),
-                       blk, E, cells)
+                       blk, E, cells, self.pin_elems)
 
         key = (E, tuple(s._rev for s in self.sessions),
                tuple(id(s.voice) for s in self.sessions))
@@ -1190,7 +1259,9 @@ class StreamPool:
         """Publish the lattice windows and lat_base together. Slides are
         staggered, so usually one session's version moved: its rows are
         scattered into the device tables in place (index_copy_); otherwise
-        (first sizing, a new cell count, many slides) everything uploads."""
+        (first sizing, a new cell count, many slides) everything uploads.
+        While serving, the scatter goes into a copy of the tables: a set
+        that was published may still be read by a queued served tick."""
         prev = self._lat_key
         changed = ([i for i in range(self.n) if prev[1][i] != lat_key[1][i]]
                    if (prev is not None and self._lat_dev is not None
@@ -1205,6 +1276,9 @@ class StreamPool:
         rows = [_up(x, self.device) for x in kf.lattice_tables(lat)]
         base = _up([s._lat_base for s in sess], self.device, torch.int32)
         if small:
+            if self._serving:
+                self._lat_dev = tuple(t.clone() for t in self._lat_dev)
+                self._lat_base_dev = self._lat_base_dev.clone()
             idx = _up(changed, self.device, torch.int64)
             for dst, r in zip(self._lat_dev, rows):
                 dst.index_copy_(0, idx, r)
@@ -1222,7 +1296,9 @@ class StreamPool:
         a rebase, an idle-horizon append, a live [voice:]) and E is
         unchanged, their rows are scattered in place; otherwise all
         upload. A direct `session.voice` assignment (no revision bump)
-        changes key[2] with no changed revision and rebuilds all."""
+        changes key[2] with no changed revision and rebuilds all. While
+        serving, the scatter goes into a copy of the score tables, as in
+        _upload_lattices."""
         for s in self.sessions:
             if abs(s.voice.jitter_frequency - inc) >= 1e-9:
                 raise ValueError("pooled sessions must share a jitter rate")
@@ -1242,6 +1318,9 @@ class StreamPool:
         rows = dict(zip(("n", "scal", "vec", "par"),
                         (_up(x, self.device) for x in tabs)), offsets=offs)
         if small:
+            if self._serving:
+                self._dev = dict(self._dev, **{k: self._dev[k].clone()
+                                               for k in rows})
             idx = _up(changed, self.device, torch.int64)
             for k, r in rows.items():
                 self._dev[k].index_copy_(0, idx, r)
@@ -1260,6 +1339,11 @@ class StreamPool:
         k*block] audio. Read-ahead trades k*block of latency for one
         launch and one host pass per k blocks; the state continues exactly
         either way, so mixing k values is safe."""
+        if self._serving:
+            raise RuntimeError("read_block() while serve mode is live would "
+                               "race the real-time thread for the carried "
+                               "state; use serve_tick() or serve_stop() "
+                               "first")
         blk = self.block * int(k)
         dev = self._prepare_tick(blk)
         out, self._sf, self._si = _tick(self._impl, dev, self._sf, self._si,
@@ -1317,6 +1401,230 @@ class StreamPool:
         """Fetch the last in-flight pipelined tick (None if none)."""
         return self.collect()
 
+    # -- serve mode: a frontend thread and a real-time tick ----------------
+    #
+    # As grail_tpu's: the frontend thread (serve_start's loop, or explicit
+    # _serve_build calls) owns every host pass and publishes a swap; the
+    # real-time thread's serve_tick adopts the newest swap and runs one
+    # tick. The carried rows (_sf, _si) and the served offsets never ride a
+    # swap: the real-time thread is their only writer while serving.
+    #
+    # On a card every published table set gets a CUDA graph of its own,
+    # captured on the frontend thread against that set's tables and the
+    # pool's fixed state and offsets buffers, so the real-time thread
+    # never builds or captures: its tick is one replay (the carry launch,
+    # the state written back, the offsets advanced, the output conversion)
+    # and one copy of the audio out of the graph's buffer. A published set
+    # is never written again (the frontend scatters into copies, see
+    # _upload_scores), so a queued replay cannot read a half-applied feed;
+    # a new set costs a device copy of the group that changed and one
+    # capture. The other design, one graph over fixed tables with each
+    # published set copied into them at adoption, would put a copy of the
+    # whole group (the 35.6 MB of lattices at N = 512, E = 64, 60 s
+    # windows) on the real-time path at every adoption.
+    #
+    # The frontend's device work (uploads, copies, scatters) and the ticks
+    # share the device's default stream; only the capture runs on a side
+    # stream, where it records and launches nothing. Stream order then
+    # puts a set's writes before the first tick that reads it, and the
+    # caching allocator reuses a dropped set's memory only after the ticks
+    # queued before the drop, so an adoption is a pointer swap and one
+    # copy of the offsets: no event to wait on, no record_stream. The cost
+    # is that a large upload of the frontend (a whole lattice group) sits
+    # in the stream between two ticks. grail_tpu's warm-up of its scatter
+    # shapes has no counterpart: index_copy_ compiles nothing.
+
+    def _serve_build(self) -> bool:
+        """Frontend cycle: sync the session counters to the real-time tick
+        clock, run the host pass (_prepare_tick) and, when its inputs
+        changed, publish a swap; on a card the swap carries the graph
+        captured for it. Returns whether it published.
+
+        Runs only on the frontend thread (and in serve_start). The publish
+        key commits only once the swap is ready: a failed capture raises
+        and leaves the key, so the next cycle retries the publish."""
+        t_snap = self._serve_ticks          # one int read, GIL-atomic
+        blk = self.block
+        with self._serve_lock:
+            # every session advances in lockstep: one lag integer
+            self._lag_samples += (t_snap - self._serve_synced) * blk
+            self._serve_synced = t_snap
+            dev = self._prepare_tick(blk)
+            pub_key = (self._cache_key, self._lat_key)
+            if pub_key == self._serve_pub_key:
+                return False                # steady state: nothing changed
+            off = torch.empty(self.n, dtype=torch.int32,
+                              pin_memory=self._impl == "kernel")
+            off.numpy()[:] = [s._consumed_samples for s in self.sessions]
+            swap = dict(dev={k: v for k, v in dev.items() if k != "offsets"},
+                        off_host=off, snap_ticks=t_snap)
+            if self._impl == "kernel":
+                self._serve_capture(swap)
+            self._serve_pub_key = pub_key
+        with self._swap_lock:
+            self._swap_pending = swap       # the newest publish wins
+        return True
+
+    def _serve_capture(self, swap: dict) -> None:
+        """Capture the served tick over `swap`'s tables as a CUDA graph on
+        the capture stream, in the thread-local capture mode so that the
+        real-time thread and the sinks go on launching and copying
+        meanwhile. The graph writes the pool's fixed state and offsets; its
+        audio lands in a buffer of its own (swap['out']). Every graph of
+        the pool allocates from one memory pool: they replay one at a time
+        on one stream, and each one's output is copied out after its
+        replay."""
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._capture_stream):
+            g.capture_begin(pool=self._serve_mempool,
+                            capture_error_mode="thread_local")
+            try:
+                out = _served_tick(self._impl, swap["dev"], self._sf,
+                                   self._si, self._serve_off, self.block,
+                                   _OUTPUTS[self.output])
+            finally:
+                g.capture_end()
+        swap.update(graph=g, out=out)
+        self._serve_captures += 1
+
+    def serve_start(self, period: Optional[float] = None) -> None:
+        """Start the serving frontend; serve_tick() becomes real-time safe.
+
+        `period` is the frontend cycle time (default: one block period).
+        The first build and publish happen here and, on a card, the kernel
+        library's build, one eager tick on copies of the state (it
+        configures the kernel, makes the Lehmer table and loads every
+        kernel the tick runs, none of which may happen inside a capture)
+        and the first capture, so the first serve_tick() replays at once.
+        Feeds remain allowed from any thread: they take the frontend lock,
+        which the real-time path never takes."""
+        if self._serve_thread is not None:
+            return
+        on_card = self._impl == "kernel"
+        if on_card:
+            from ..synth._build import load_library
+
+            load_library()
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._serve_mempool = torch.cuda.graph_pool_handle()
+        self._serve_off = torch.zeros(self.n, dtype=torch.int32,
+                                      device=self.device)
+        self._swap_pending = self._serve_cur = self._serve_pub_key = None
+        self._serve_error = None
+        self._serve_ticks = self._serve_synced = 0
+        self._serve_stop_flag = False
+        self._serving = True                # gates _feed_lock from here on
+        try:
+            if on_card:
+                with self._serve_lock:
+                    dev = self._prepare_tick()
+                    _served_tick(self._impl, dev, self._sf.clone(),
+                                 self._si.clone(), dev["offsets"].clone(),
+                                 self.block, _OUTPUTS[self.output])
+                    torch.cuda.synchronize(self.device)
+            self._serve_build()             # the first publish
+        except BaseException:
+            self._serving = False
+            raise
+        period = float(period) if period else self.block / self.sample_rate
+
+        def loop():
+            while not self._serve_stop_flag:
+                t0 = time.perf_counter()
+                try:
+                    self._serve_build()
+                except Exception as e:      # handed to the real-time thread
+                    self._serve_error = e
+                deadline = t0 + period
+                while not self._serve_stop_flag:
+                    dt = deadline - time.perf_counter()
+                    if dt <= 0:
+                        break
+                    time.sleep(min(dt, 0.05))
+
+        self._serve_thread = threading.Thread(
+            target=loop, name="StreamPool-frontend", daemon=True)
+        self._serve_thread.start()
+
+    def _serve_adopt(self, swap: dict) -> None:
+        """Adopt a published swap: its tables (and graph), with the offsets
+        of its snapshot plus the blocks served since it was taken, copied
+        to the device from pinned memory."""
+        off = swap["off_host"]
+        o = off.numpy()
+        o += (self._serve_ticks - swap["snap_ticks"]) * self.block
+        self._serve_off.copy_(off, non_blocking=True)
+        self._serve_cur = swap
+
+    def serve_tick(self) -> torch.Tensor:
+        """Real-time dispatch: adopt the newest published set (if any) and
+        run one tick. Returns the [N, block] audio on the pool's device
+        (int16 with output='pcm16', uint8 with 'ulaw'), a tensor of its own
+        that later ticks do not overwrite, as read_block(sync=False)
+        returns: on a card the graph's output buffer is copied out after
+        each replay (one device copy), so a sink may hold any number of
+        ticks in flight.
+
+        On a card the tick is one replay of the adopted set's CUDA graph,
+        counted as one fused_synth_carry launch, on the device's default
+        stream, where the frontend's device work runs too: call it with
+        that stream current (as a thread has unless it set another). A
+        failed replay raises, and so does the next serve_tick after a
+        failed frontend cycle. Nothing here waits on the frontend: adoption
+        is a pointer swap under a lock held for as long and one [N] int32
+        copy of the offsets from pinned memory; a steady tick copies
+        nothing from the host."""
+        if not self._serving:
+            raise RuntimeError("serve_tick() needs serve_start() first")
+        err, self._serve_error = self._serve_error, None
+        if err is not None:
+            raise RuntimeError("the serving frontend failed") from err
+        with self._swap_lock:
+            swap, self._swap_pending = self._swap_pending, None
+        if swap is not None:
+            self._serve_adopt(swap)
+        cur = self._serve_cur
+        if self._impl == "kernel":
+            cur["graph"].replay()
+            kf.LAUNCHES["fused_synth_carry"] += 1   # the launch it holds
+            out = cur["out"].clone()
+        else:
+            out = _served_tick(self._impl, cur["dev"], self._sf, self._si,
+                               self._serve_off, self.block,
+                               _OUTPUTS[self.output])
+        self._serve_ticks += 1
+        return out
+
+    def serve_stop(self) -> None:
+        """Stop the frontend thread and resync the session counters, so
+        that read_block, save and load_state continue from the served
+        position."""
+        th = self._serve_thread
+        if th is None:
+            return
+        self._serve_stop_flag = True
+        th.join(timeout=30)
+        if th.is_alive():
+            # tearing serve state down under a live frontend would let it
+            # write counters and tables beside the non-serving calls
+            raise RuntimeError(
+                "serving frontend thread did not stop within 30 s (stalled "
+                "build?); serve state left intact; retry serve_stop()")
+        self._serve_thread = None
+        self._serving = False
+        with self._serve_lock:
+            self._lag_samples += ((self._serve_ticks - self._serve_synced)
+                                  * self.block)
+            self._serve_synced = self._serve_ticks
+        # the served offsets advanced on the device: drop the upload caches
+        # and the quiet fast path (which would return the stale _dev), so
+        # the next read_block rebuilds from the host counters; the graphs
+        # go with their sets
+        self._cache_key = self._lat_key = None
+        self._quiet = None
+        self._swap_pending = self._serve_cur = None
+        self._capture_stream = self._serve_mempool = None
+
     # -- pool-level checkpoint / restore -----------------------------------
     #
     # ONE payload captures all N sessions (rolling scores, counters, lattice
@@ -1324,6 +1632,13 @@ class StreamPool:
     # device->host copy, with grail_tpu's keys: a JAX pool's blob loads here.
 
     def save(self) -> bytes:
+        if self._serving:
+            # the counters sync only at frontend cycles while the real-time
+            # thread writes the carried rows every tick: a checkpoint taken
+            # now would pair stale counters with a newer state
+            raise RuntimeError(
+                "StreamPool.save() while serve mode is live would snapshot "
+                "a torn state; call serve_stop() first")
         if self._inflight is not None:
             self.drain()   # a checkpoint must not orphan an in-flight tick
         sf, si = self._sf.cpu().numpy(), self._si.cpu().numpy()
@@ -1336,6 +1651,12 @@ class StreamPool:
         return buf.getvalue()
 
     def load(self, payload: bytes) -> None:
+        if self._serving:
+            # the real-time thread would go on ticking the adopted set over
+            # the restored state
+            raise RuntimeError(
+                "StreamPool.load() while serve mode is live would be "
+                "clobbered by the real-time thread; call serve_stop() first")
         z = np.load(io.BytesIO(payload))
         n, block = (int(x) for x in z["pool_meta"])
         if n != self.n:

@@ -589,9 +589,13 @@ def fused_synth_cuda(tables: FusedTables, phi: Optional[torch.Tensor],
             ptr(sf_out), ptr(si_out), B, E, W, T, B // Ss, row_stride,
             int(bool(kcar)), int(carry), float(np.float32(inc or 0.0)),
             p(stream))
-        LAUNCHES["fused_synth_carry" if carry else
-                 "fused_synth_track" if carrier is not None else
-                 "fused_synth"] += 1
+        # a call under stream capture records the launch into a CUDA graph
+        # and launches nothing: each replay of the graph is counted where
+        # it runs (StreamPool.serve_tick)
+        if not torch.cuda.is_current_stream_capturing():
+            LAUNCHES["fused_synth_carry" if carry else
+                     "fused_synth_track" if carrier is not None else
+                     "fused_synth"] += 1
     raise_on(lib, rc, "fused_synth kernel launch")
     return audio, sf_out, si_out
 

@@ -737,6 +737,198 @@ def test_solo_read_on_cuda_matches_cpu(cuda):
         *outs)
 
 
+# ---- serve mode: the served tick as a CUDA graph's replay -----------------
+
+_SERVE_TEXTS = ("[rate:8]hello hello", "[pitch:180]aeio", "go on now",
+                "all lines are busy", "every call is important to us")
+
+
+def _serve_pools(n, output="f32", **kw):
+    """Two pools on the card fed alike, 0.3 s lattice windows (so windows
+    slide) and a [rate:8] session (so its score rebases); every third
+    session is left for a later feed: (the pool to serve, its twin)."""
+    from grail_tpu_torch.runtime.stream import StreamPool
+
+    def mk():
+        pool = StreamPool(n, voice="plain", language="english",
+                          output=output, jitter_horizon_s=0.3, **kw)
+        for i in range(n):
+            if i % 3 != 2:
+                pool.feed(i, _SERVE_TEXTS[i % len(_SERVE_TEXTS)],
+                          parse_commands=True)
+        pool.flush()
+        return pool
+
+    return mk(), mk()
+
+
+def _late_feeds(t, n, pools):
+    """The feeds of the served schedule at tick t, to every pool alike."""
+    for p in pools:
+        if t == 8:
+            for i in range(2, n, 3):
+                p.feed(i, "open the door")
+                p.flush(i)
+        elif t == 20:
+            p.feed(0, " and more")
+            p.flush(0)
+
+
+@pytest.mark.parametrize("output", ["f32", "pcm16", "ulaw"])
+@pytest.mark.parametrize("N", [3, 128])
+def test_served_graph_equals_eager_ticks(cuda, N, output):
+    # a build before every served tick, as read_block prepares every tick:
+    # each served tick (one graph replay) equals the twin's eager carry
+    # launch and conversion, audio and carried rows bit for bit, over ticks
+    # that cross feeds, window slides and a rebase
+    pool, twin = _serve_pools(N, output, pin_elems=64)
+    pool.serve_start(period=9999)
+    n0, c0 = dict(kf.LAUNCHES), pool._serve_captures
+    ticks, loud = 36, 0
+    for t in range(ticks):
+        _late_feeds(t, N, (pool, twin))
+        pool._serve_build()
+        a = pool.serve_tick()
+        b = twin.read_block(sync=False)
+        assert a.dtype == b.dtype and a.shape == (N, 1024)
+        assert torch.equal(a, b), t
+        assert torch.equal(pool._sf, twin._sf), t
+        assert torch.equal(pool._si, twin._si), t
+        loud += int((a != a[:, :1]).any(dim=1).sum())
+    assert loud > 0
+    # the served ticks count one carry launch each, as the twin's do
+    assert kf.LAUNCHES["fused_synth_carry"] == \
+        n0["fused_synth_carry"] + 2 * ticks
+    assert all(kf.LAUNCHES[k] == n0[k] for k in n0
+               if k != "fused_synth_carry")
+    assert pool._serve_captures >= c0 + 3       # a graph per published set
+    pool.serve_stop()
+    assert any(s._lat_base > 0 for s in pool.sessions)
+    s0 = pool.sessions[0]
+    assert s0._consumed_samples < s0._jitter_pos          # a rebase
+    # serve_stop, then read_block continues exactly
+    for _ in range(3):
+        assert torch.equal(pool.read_block(sync=False),
+                           twin.read_block(sync=False))
+
+
+def test_serve_recaptures_on_an_e_change(cuda):
+    pool, twin = _serve_pools(2, pin_elems=16)
+    pool.serve_start(period=9999)
+    assert torch.equal(pool.serve_tick(), twin.read_block(sync=False))
+    E0, c0, cur = pool._cache_key[0], pool._serve_captures, pool._serve_cur
+    for p in (pool, twin):
+        p.feed(1, " a much longer feed that grows the element bucket past "
+                  "its pin for sure, yes indeed it does grow")
+        p.flush(1)
+    assert pool._serve_build()
+    assert pool._cache_key[0] > E0 == 16
+    assert pool._serve_captures == c0 + 1
+    assert torch.equal(pool.serve_tick(), twin.read_block(sync=False))
+    assert pool._serve_cur is not cur
+    assert pool._serve_cur["dev"]["n"].shape[1] == pool._cache_key[0]
+    pool.serve_stop()
+
+
+def test_served_outputs_outlive_later_ticks(cuda):
+    # the graph's output buffer is rewritten by every replay; serve_tick
+    # returns a copy: tick k's tensor still holds tick k after k+1..k+3
+    pool, twin = _serve_pools(3, pin_elems=64)
+    ref = [twin.read_block(sync=False) for _ in range(8)]
+    pool.serve_start(period=9999)
+    got = [pool.serve_tick() for _ in range(8)]
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a, b), k
+    assert len({t.data_ptr() for t in got[4:]}) == 4
+    pool.serve_stop()
+
+
+def test_steady_served_ticks_copy_nothing_from_the_host(cuda):
+    # one replay and one device copy per steady tick: the profiler sees
+    # the carry kernel once a tick and no host->device copy
+    # (a warm-up step of the profiler first: without it a trace of 20
+    # served ticks once missed one graph-launched kernel)
+    pool, _ = _serve_pools(3, pin_elems=64)
+    pool.serve_start(period=9999)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(activities=acts, schedule=sched,
+                                acc_events=True) as prof:
+        for _ in range(3):
+            pool.serve_tick()
+        torch.cuda.synchronize()
+        prof.step()
+        n0 = kf.LAUNCHES["fused_synth_carry"]
+        for _ in range(5):
+            pool.serve_tick()
+        torch.cuda.synchronize()
+        prof.step()
+    ev = {e.key: e.count for e in prof.key_averages()}
+    assert sum(c for k, c in ev.items() if "HtoD" in k) == 0, ev
+    assert sum(c for k, c in ev.items() if "fused_synth_kernel" in k) == 5
+    assert kf.LAUNCHES["fused_synth_carry"] == n0 + 5
+    pool.serve_stop()
+
+
+def test_captures_run_on_the_frontend_thread(cuda):
+    # after serve_start, every capture is the frontend thread's: the
+    # real-time thread (here the test's) only adopts and replays
+    import threading
+    import time
+
+    pool, twin = _serve_pools(3, pin_elems=64)
+    pool.serve_start(period=0.005)
+    threads, real = [], pool._serve_capture
+
+    def recording(swap):
+        threads.append(threading.current_thread().name)
+        return real(swap)
+
+    pool._serve_capture = recording
+    try:
+        for t in range(30):
+            if t % 5 == 0:
+                pool.feed(t % 3, "go ")
+                pool.flush(t % 3)
+            assert bool(torch.isfinite(pool.serve_tick()).all())
+            time.sleep(0.005)
+    finally:
+        pool.serve_stop()
+    assert threads and set(threads) == {"StreamPool-frontend"}, threads
+
+
+def test_a_failed_capture_raises_and_publishes_nothing(cuda, monkeypatch):
+    from grail_tpu_torch.runtime import stream as st
+
+    pool, _ = _serve_pools(3, pin_elems=64)
+    pool.serve_start(period=9999)
+    pool.serve_tick()
+    real = st._served_tick
+
+    def fails(*args):
+        real(*args)
+        raise RuntimeError("capture fault")
+
+    monkeypatch.setattr(st, "_served_tick", fails)
+    key, c0, cur = pool._serve_pub_key, pool._serve_captures, \
+        pool._serve_cur
+    pool.feed(2, "hello")
+    pool.flush(2)
+    with pytest.raises(RuntimeError, match="capture fault"):
+        pool._serve_build()
+    assert pool._serve_pub_key == key and pool._serve_captures == c0
+    assert pool._swap_pending is None
+    pool.serve_tick()                        # the old set serves on
+    assert pool._serve_cur is cur
+    monkeypatch.undo()
+    assert pool._serve_build()               # the retry publishes
+    pool.serve_tick()
+    assert pool._serve_cur is not cur
+    pool.serve_stop()
+
+
 # ---- the host_track mode (the solo long-form route) and the FP32 probe -----
 
 @pytest.mark.parametrize("S", [1, 4], ids=["unsplit", "split4"])
