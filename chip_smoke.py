@@ -10,7 +10,9 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
   1. device — needs torch.cuda; prints nvidia-smi's name and power limit.
   2. build — compiles every source under grail_tpu_torch/synth/csrc/: the
      fused synthesizer (fused_synth.cu), the split's Q32 seam pre-pass
-     (phase_q32_pre.cu) and the core backend's recurrence (synth_core.cu).
+     (phase_q32_pre.cu), the core backend's recurrence (synth_core.cu),
+     the issue-rate probe (fma_peak.cu) and the xla core's two f32
+     recurrences (seq_scan.cu), one nvcc per source, all at once.
   3. kernel vs plain, unsplit — bench.py's 64 texts, voice generic,
      T = 65536, both carrier modes: final integer state bit-equal, audio
      < -100 dB per utterance and max-abs <= 1e-5 against the plain PyTorch
@@ -109,6 +111,26 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      every 7 periods (the cadence of grail_tpu's benchmarks/latency.py):
      the frontend cycles, the captures (all on the frontend thread) and
      the deadline misses at sink depth 2, which must be 0.
+ 16. the xla and scan cores and the xla tick (seq_scan.cu, the two f32
+     recurrences: carrier_scan and jsched_scan): both entry points
+     bit-equal to their plain versions at [441, 512], [4096, 64] and one
+     lane of 4,096 with the state carried over two calls, timed beside the
+     plain loops and their bounds; synthesize_batch(64 texts,
+     backend="xla") at full width (S = 1, T = 356,352, 87 blocks) launching
+     no kernel on its Q32 carrier and carrier_scan once a block with
+     exact_carrier="kernel", finite, each utterance within -60 dB of the
+     fused route, "ae"/"ea"-style pairs against the CPU's xla route at
+     < -100 dB, its end-to-end and program times beside the fused route's;
+     synthesize("ae", backend="scan") against the CPU with its time; the
+     xla tick at block 441 (10 ms): StreamPool(512) over 40 ticks with
+     window slides, one carrier_scan and one jsched_scan per tick, ticks
+     20-29 bit-equal to the plain recurrences; at N = 128 and 512 a
+     profiler window of 20 steady ticks (both kernels each tick, 0
+     host->device copies) and read_block as a share of the 10.0 ms
+     budget; a block-1,024 xla pool within -60 dB of the fused pool; serve
+     mode on the xla pool as phase 15 (20 served ticks bit-equal to a
+     twin's read_block, replay times, a paced 10 s run at the 10 ms
+     period, its deadline misses printed, not gated).
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
@@ -117,7 +139,9 @@ core route, with the per-call time and the unsplit launch beside it;
 fused_synth_carry: one tick at N = 512, with N = 128 beside it, and
 phase 15's served numbers as served_*;
 fused_synth_track: the long-form split's lanes; fma_peak: the mul_add
-variant, with the fma variant beside it); phase_q32_pre and synth_core
+variant, with the fma variant beside it; carrier_scan and jsched_scan: the
+xla tick's shape [441, 512], the xla batch's block [4096, 64] beside it,
+launches from phase 16's tick main path); phase_q32_pre and synth_core
 also carry their launch geometry with ptxas's registers per template
 instance (`geometry`) and their wrapper call's time (`call_ms`). bound_ms states operations
 against the card's peak FP32 instruction rate, 33.5e12 per second: half the
@@ -235,6 +259,23 @@ FEED_EVERY = 7              # a feed every 7 block periods at most (the
 #                             cadence of grail_tpu's benchmarks/latency.py,
 #                             max(7, ceil(12 / (N * period))))
 SINK_DEPTH = 2              # tick k's audio is due k + 2 block periods in
+# phase 16: the xla tick at 10 ms blocks (441 samples at 44.1 kHz, the frame
+# of real-time voice stacks such as WebRTC's 10 ms audio callback), the
+# serving cell's texts and widths otherwise
+XLA_BLOCK = 441
+XLA_TICKS = 80              # main-path ticks: 0.8 s, so that 0.3 s windows
+#                             slide (from ~0.5 s on: a window holds at least
+#                             16 cells)
+XLA_CHECK = tuple(range(20, 30)) + tuple(range(70, 80))   # against plain
+XLA_SERVED_TICKS = 20       # served ticks held against a twin's read_block
+XLA_SERVED_PLAIN = range(10, 20)
+XLA_VS_FUSED_TICKS = 20     # block-1,024 ticks, xla pool against fused pool
+SEQ_SHAPES = ((441, 512), (4096, 64))   # [T, lanes]: the tick, the batch
+SEQ_REPS = 50               # launches between two events, seq_scan's own time
+# seq_scan.cu per lane-sample: the carrier's add, compare, subtract and
+# select; the jitter phase's add, compare, subtract, select and cell add
+CARRIER_OPS = 4
+JSCHED_OPS = 5
 SERVE_TEXTS = (              # each opens on a vowel, so it sounds early
     "all good things come to those who wait",
     "every call is important to us",
@@ -315,6 +356,26 @@ def bound(n_bytes, ops):
     if t_bytes >= t_ops:
         return t_bytes, "bytes", measured
     return t_ops, "operations", measured
+
+
+def launches_ms(fn, n):
+    """fn() repeated n times between two CUDA events, per call: the median
+    of REPS such windows, after one warm-up window."""
+    import torch
+
+    times = []
+    for k in range(REPS + 1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            if fn() != 0:
+                raise RuntimeError("a kernel launch failed")
+        e1.record()
+        torch.cuda.synchronize()
+        if k:
+            times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
 
 
 def median_ms(fn, reps=REPS):
@@ -772,8 +833,55 @@ def main():
     served = serve_mode(card, dev, drive, serve)
     v512, v128 = (served["by_n"][n] for n in SERVE_N[::-1])
 
+    # ---- 16: seq_scan.cu, the xla and scan cores, the xla tick ----------
+    seq = seq_scan_phase(card, dev, g.get_voice("plain").jitter_frequency)
+    xb = xla_batch_phase(card, dev, drive, texts, voice, e2e_ms)
+    xt = xla_tick_phase(card, dev, drive)
+    xs = serve_mode(card, dev, drive, xt, blk=XLA_BLOCK, backend="xla",
+                    ticks=XLA_SERVED_TICKS, plain_ticks=XLA_SERVED_PLAIN,
+                    tag="16 xla serve mode", gate=False)
+    x512, x128 = (xs["by_n"][n] for n in SERVE_N[::-1])
+    seq_tick, seq_blk = (seq[shape] for shape in SEQ_SHAPES)
+
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
+
+    def seq_entry(name, key, replaces, launches, extra):
+        """One seq_scan.cu entry point's line: at the tick's shape, with
+        the xla batch's block shape beside it."""
+        b1, b2 = seq_tick[f"{key}_bound"], seq_blk[f"{key}_bound"]
+        return dict({
+            "name": name, "route": "cuda",
+            "source": "grail_tpu_torch/synth/csrc/seq_scan.cu",
+            "replaces": replaces, "replaces_kind": "lax.scan, no Pallas "
+            "kernel", "launches": launches,
+            "max_abs_err": max(seq_tick[f"{key}_max_abs"],
+                               seq_blk[f"{key}_max_abs"]),
+            "ms": seq_tick[f"{key}_ms"], "plain_ms":
+            seq_tick[f"{key}_plain_ms"], "bound_ms": b1[0], "bound_by": b1[1],
+            "bound_measured_ms": b1[2], "library_ms": None,
+            "call_ms": seq_tick[f"{key}_call_ms"],
+            "shape": list(SEQ_SHAPES[0]),
+            "block_ms": seq_blk[f"{key}_ms"],
+            "block_plain_ms": seq_blk[f"{key}_plain_ms"],
+            "block_bound_ms": b2[0], "block_shape": list(SEQ_SHAPES[1])},
+            **extra)
+
+    xla_extra = {
+        "tick_launches": xt["launches"],
+        "tick_ms_n512": xt["by_n"][512]["tick_ms"],
+        "tick_ms_n128": xt["by_n"][128]["tick_ms"],
+        "plain_tick_ms_n512": xt["by_n"][512]["plain_tick_ms"],
+        "read_block_ms_n512": xt["by_n"][512]["read_block_ms"],
+        "read_block_ms_n128": xt["by_n"][128]["read_block_ms"],
+        "tick_budget_ms": xt["budget_ms"],
+        "idle_share_n512": xt["by_n"][512]["idle_share"],
+        "served_replay_ms_n512": x512["replay_ms"],
+        "served_host_p50_ms_n512": x512["host_p50_ms"],
+        "served_host_p99_ms_n512": x512["host_p99_ms"],
+        "served_misses_n512": x512["misses"],
+        "served_replay_ms_n128": x128["replay_ms"],
+        "served_misses_n128": x128["misses"]}
 
     # ms/plain_ms are at `shape` [lanes, samples per lane]: the split's for
     # fused_synth, whose unsplit time at the same texts is unsplit_ms
@@ -880,7 +988,19 @@ def main():
          "fma_instructions_per_s": probe["fma"]["instructions_per_s"],
          "fma_peak_share": probe["fma"]["peak_share"],
          "fma_datasheet_share": probe["fma"]["datasheet_share"],
-         "fma_max_abs_err": probe["fma_max_abs"]}]}),
+         "fma_max_abs_err": probe["fma_max_abs"]},
+        seq_entry("carrier_scan", "carrier",
+                  "grail_tpu/synth/synthesize.py:182", xt["launches"],
+                  dict(xla_extra, batch_kcar_launches=xb["launches"],
+                       xla_program_kcar_ms=xb["program_kcar_ms"],
+                       xla_program_ms=xb["program_ms"],
+                       fused_program_ms=xb["fused_program_ms"],
+                       xla_e2e_ms=xb["e2e_ms"],
+                       xla_vs_fused_db=xb["db_fused"],
+                       scan_ae_ms=xb["scan_ms"])),
+        seq_entry("jsched_scan", "jsched",
+                  "grail_tpu/runtime/stream.py:207", xt["launches"],
+                  xla_extra)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1282,16 +1402,21 @@ def device_us(avg):
     return 0.0
 
 
-def profiled_ticks(label, tick):
+CARRY_KERNELS = {"fused_synth_kernel": "fused_synth_carry"}
+XLA_KERNELS = {"carrier_scan_kernel": "carrier_scan",
+               "jsched_scan_kernel": "jsched_scan"}
+
+
+def profiled_ticks(label, tick, kernels=CARRY_KERNELS):
     """Run tick() PROFILE_TICKS times under torch.profiler and read the
-    window: host->device and device->host copies, fused_synth_kernel
-    launches as the trace saw them and as the launch count read them, the
-    device time by name, the carry kernel's device time per launch and the
-    device idle share (the window's wall time less its device time). A
-    warm-up step of the profiler (3 ticks, not recorded) comes first:
-    without it traces of 20 ticks missed from 1 to 8 of the window's first
-    kernels. Fails unless both counts are PROFILE_TICKS and no copy went
-    host->device."""
+    window: host->device and device->host copies, each kernel of `kernels`
+    ({name in the trace: LAUNCHES key}) as the trace saw it and as the
+    launch count read it, the device time by name, the first kernel's
+    device time per launch and the device idle share (the window's wall
+    time less its device time). A warm-up step of the profiler (3 ticks,
+    not recorded) comes first: without it traces of 20 ticks missed from 1
+    to 8 of the window's first kernels. Fails unless every kernel was seen
+    and counted PROFILE_TICKS times and no copy went host->device."""
     import torch
 
     from grail_tpu_torch.synth import kernel_fused as kf
@@ -1305,34 +1430,37 @@ def profiled_ticks(label, tick):
             tick()
         torch.cuda.synchronize()
         prof.step()
-        l0 = kf.LAUNCHES["fused_synth_carry"]
+        l0 = dict(kf.LAUNCHES)
         t0 = time.perf_counter()
         for _ in range(PROFILE_TICKS):
             tick()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-        launched = kf.LAUNCHES["fused_synth_carry"] - l0
+        launched = {n: kf.LAUNCHES[k] - l0[k] for n, k in kernels.items()}
         prof.step()
     avgs = prof.key_averages()
     ev = {e.key: e.count for e in avgs}
     h2d = sum(c for k, c in ev.items() if "HtoD" in k)
     d2h = sum(c for k, c in ev.items() if "DtoH" in k)
-    kern = sum(c for k, c in ev.items() if "fused_synth_kernel" in k)
-    if kern != PROFILE_TICKS or launched != PROFILE_TICKS or h2d:
+    seen = {n: sum(c for k, c in ev.items() if n in k) for n in kernels}
+    if (any(v != PROFILE_TICKS for v in seen.values())
+            or any(v != PROFILE_TICKS for v in launched.values()) or h2d):
         raise AssertionError(
             f"{label}: in {PROFILE_TICKS} steady ticks the profiler saw "
-            f"{kern} fused_synth_kernel launches and {h2d} host->device "
-            f"copies; the launch count read {launched}")
+            f"launches {seen} and {h2d} host->device copies; the launch "
+            f"counts read {launched}")
+    first = next(iter(kernels))
+    kern = seen[first]
     # device time: the device-side entries (kernels, copies), not the
     # profiler's own step spans
     dev_ms = {e.key: device_us(e) / 1e3 for e in avgs
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA
               and not e.key.startswith("ProfilerStep")}
-    kern_dev_ms = sum(v for k_, v in dev_ms.items()
-                      if "fused_synth_kernel" in k_) / kern
-    return dict(h2d=h2d, d2h=d2h, kernels=kern, window_ms=window_ms,
-                dev_ms=dev_ms, kernel_device_ms=kern_dev_ms,
+    kern_dev_ms = sum(v for k_, v in dev_ms.items() if first in k_) / kern
+    return dict(h2d=h2d, d2h=d2h, kernels=kern, seen=seen,
+                window_ms=window_ms, dev_ms=dev_ms,
+                kernel_device_ms=kern_dev_ms,
                 idle=1.0 - sum(dev_ms.values()) / window_ms)
 
 
@@ -1521,10 +1649,14 @@ def serving(card, dev, drive):
     return out
 
 
-def serve_mode(card, dev, drive, phase11):
-    """Phase 15: serve mode at the serving cell's full width, N = 512 then
-    128 (voice plain, english, block 1,024, 60 s windows, every session
-    fed, pin_elems = 64). Per N: SERVED_TICKS served ticks with the
+def serve_mode(card, dev, drive, phase11, blk=SERVE_BLOCK, backend=None,
+               ticks=SERVED_TICKS, plain_ticks=SERVED_PLAIN,
+               tag="15 serve mode", gate=True):
+    """Phase 15 (and phase 16's xla tick with blk, backend, ticks,
+    plain_ticks and tag of its own; its deadline misses printed, not gated,
+    when gate is False): serve mode at the serving cell's full width, N =
+    512 then 128 (voice plain, english, block 1,024, 60 s windows, every
+    session fed, pin_elems = 64). Per N: SERVED_TICKS served ticks with the
     staggered feeds published by explicit _serve_build() calls, each bit
     for bit (audio, sf, si) equal to a twin pool's read_block and
     SERVED_PLAIN of them to the plain version from the same state, one
@@ -1549,16 +1681,18 @@ def serve_mode(card, dev, drive, phase11):
 
     from grail_tpu_torch.runtime import stream as st
 
-    blk = SERVE_BLOCK
     period = blk / 44100.0
+    program = "xla" if backend == "xla" or blk % 128 else "fused"
+    expect = set(st._TICK_LAUNCHES[program])
+    kernels = XLA_KERNELS if program == "xla" else CARRY_KERNELS
     out = {"by_n": {}}
     for n in SERVE_N[::-1]:
         texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(n)]
-        label = f"[15 serve mode] N={n}"
+        label = f"[{tag}] N={n}"
 
         def mk():
             pool = st.StreamPool(n, voice="plain", language="english",
-                                 block=blk, pin_elems=64)
+                                 block=blk, pin_elems=64, backend=backend)
             for i in range(0, n, 2):
                 pool.feed(i, texts[i])
             pool.flush()
@@ -1574,7 +1708,7 @@ def serve_mode(card, dev, drive, phase11):
         twin = mk()
         twin._prepare_tick()    # serve_start's first host pass, before the
         ref = []                # feeds of tick 0, runs here too
-        for t in range(SERVED_TICKS):
+        for t in range(ticks):
             feed(twin, t)
             a = twin.read_block(sync=False)
             ref.append((a, twin._sf.clone(), twin._si.clone()))
@@ -1586,10 +1720,10 @@ def serve_mode(card, dev, drive, phase11):
 
         def served():
             max_abs = 0.0
-            for t in range(SERVED_TICKS):
+            for t in range(ticks):
                 feed(pool, t)
                 pool._serve_build()
-                if t in SERVED_PLAIN:
+                if t in plain_ticks:
                     sf0, si0 = pool._sf.clone(), pool._si.clone()
                 a = pool.serve_tick()
                 for name, x, y in zip(("audio", "sf", "si"),
@@ -1598,12 +1732,12 @@ def serve_mode(card, dev, drive, phase11):
                         raise AssertionError(
                             f"{label} tick {t}: the served {name} differs "
                             f"from the twin's read_block")
-                if t in SERVED_PLAIN:
+                if t in plain_ticks:
                     # the same tick's inputs: the adopted set, the offsets
                     # before their advance
                     ins = dict(pool._serve_cur["dev"],
                                offsets=pool._serve_off - blk)
-                    plain = st._tick("plain", ins, sf0, si0, blk)
+                    plain = st._TICKS[program]("plain", ins, sf0, si0, blk)
                     for name, x, y in zip(("audio", "sf", "si"),
                                           (a, pool._sf, pool._si), plain):
                         max_abs = max(max_abs, float(
@@ -1614,12 +1748,10 @@ def serve_mode(card, dev, drive, phase11):
                                 f"differs from the plain version's")
             return max_abs
 
-        max_abs, counts = drive(f"serve mode N={n}", served,
-                                {"fused_synth_carry"})
-        if counts["fused_synth_carry"] != SERVED_TICKS:
-            raise AssertionError(f"{label}: {counts['fused_synth_carry']} "
-                                 f"carry launches for {SERVED_TICKS} served "
-                                 f"ticks")
+        max_abs, counts = drive(f"{tag} N={n}", served, expect)
+        if any(counts[k] != ticks for k in expect):
+            raise AssertionError(f"{label}: launches {counts} for {ticks} "
+                                 f"served ticks")
         audio = torch.cat([r[0] for r in ref], dim=1)
         sounding = int((audio.abs().amax(dim=1) > 0.01).sum())
         if not bool(torch.isfinite(audio).all()) or sounding < n // 4:
@@ -1629,29 +1761,30 @@ def serve_mode(card, dev, drive, phase11):
         del ref, audio
         print(f"{label}: StreamPool({n}, pin_elems=64), serve_start "
               f"{start_ms} ms (the first build, one eager tick, the first "
-              f"capture); {SERVED_TICKS} served ticks with the odd sessions "
-              f"fed over {SERVE_FEED_TICKS} ticks, each published by "
-              f"_serve_build(): launches {counts}; audio, sf and si bit-equal "
-              f"to a twin's read_block at every tick, ticks "
-              f"{SERVED_PLAIN.start}-{SERVED_PLAIN.stop - 1} to the plain "
-              f"version (max-abs {max_abs}); {sounding} of {n} sounding; "
+              f"capture); block {blk}, {program} tick; {ticks} served ticks "
+              f"with the odd sessions fed over {SERVE_FEED_TICKS} ticks, "
+              f"each published by _serve_build(): launches {counts}; audio, "
+              f"sf and si bit-equal to a twin's read_block at every tick, "
+              f"ticks {plain_ticks.start}-{plain_ticks.stop - 1} to the "
+              f"plain version (max-abs {max_abs}); {sounding} of {n} "
+              f"sounding; "
               f"{pool._serve_captures} graphs captured", flush=True)
 
         # the profiler window: steady served ticks, each fetched as
         # read_block fetches it in phase 11
-        pw = profiled_ticks(label, lambda: pool.serve_tick().cpu())
+        pw = profiled_ticks(label, lambda: pool.serve_tick().cpu(), kernels)
         window_ms, kern_dev_ms, idle = (pw[k] for k in (
             "window_ms", "kernel_device_ms", "idle"))
         h2d, d2h, kern = pw["h2d"], pw["d2h"], pw["kernels"]
         idle11 = phase11["by_n"][n]["idle_share"]
         print(f"{label} steady state, {PROFILE_TICKS} served ticks (each "
               f"fetched with .cpu()) under torch.profiler: host->device "
-              f"copies {h2d}, device->host {d2h}, fused_synth_kernel "
-              f"launches {kern} (the launch count agrees); window "
-              f"{window_ms} ms; carry kernel device time {kern_dev_ms} ms; "
-              f"device time by name {json.dumps(pw['dev_ms'])}; device idle "
-              f"share {idle} (read_block's in phase 11: {idle11})",
-              flush=True)
+              f"copies {h2d}, device->host {d2h}, kernel launches "
+              f"{pw['seen']} (the launch counts agree); window "
+              f"{window_ms} ms; {next(iter(kernels))} device time "
+              f"{kern_dev_ms} ms; device time by name "
+              f"{json.dumps(pw['dev_ms'])}; device idle share {idle} "
+              f"(read_block's: {idle11})", flush=True)
 
         # times
         host = []
@@ -1667,7 +1800,7 @@ def serve_mode(card, dev, drive, phase11):
         sf, si, off = (x.clone() for x in (pool._sf, pool._si,
                                            pool._serve_off))
         eager_ms = median_ms(lambda: st._served_tick(
-            "kernel", cur["dev"], sf, si, off, blk, conv))
+            "kernel", cur["dev"], sf, si, off, blk, conv, program))
         replay_ms = median_ms(cur["graph"].replay)   # state moves on: last
         quiet_ms = host_ms(pool._serve_build)        # nothing to publish
         k = [0]
@@ -1788,10 +1921,11 @@ def serve_mode(card, dev, drive, phase11):
               f"{len(cap_ms)} captures on the frontend thread, p50 "
               f"{statistics.median(cap_ms) if cap_ms else None} ms, max "
               f"{max(cap_ms) if cap_ms else None} ms", flush=True)
-        if misses[SINK_DEPTH]:
+        if misses[SINK_DEPTH] and gate:
             raise AssertionError(f"{label}: {misses[SINK_DEPTH]} deadline "
                                  f"misses at sink depth {SINK_DEPTH}")
-        row = dict(launches=counts["fused_synth_carry"], max_abs=max_abs,
+        row = dict(launches=counts[next(iter(kernels.values()))],
+                   max_abs=max_abs, misses=misses,
                    serve_start_ms=start_ms, host_p50_ms=p50,
                    host_p99_ms=p99, tick_ms=tick_ms, replay_ms=replay_ms,
                    eager_ms=eager_ms, kernel_device_ms=kern_dev_ms,
@@ -1809,14 +1943,367 @@ def serve_mode(card, dev, drive, phase11):
               f"host time p50 {p50} ms, p99 {p99} ms ({HOST_CALLS} calls); "
               f"CUDA events (median of {REPS}): the graph replay {replay_ms} "
               f"ms, serve_tick (replay and copy-out) {tick_ms} ms, the eager "
-              f"tick (launches op by op) {eager_ms} ms, phase 11's eager "
-              f"carry launch {phase11['by_n'][n]['kernel_ms']} ms; "
+              f"tick (launches op by op) {eager_ms} ms, the eager tick's "
+              f"kernel {phase11['by_n'][n]['kernel_ms']} ms; "
               f"_serve_build with nothing to publish {quiet_ms} ms, with "
               f"one session fed (scatter into a copy, capture, device work "
               f"synchronised) {fed_ms} ms; card {card}", flush=True)
         del pool, cur
         torch.cuda.empty_cache()
     out["launches"] = out["by_n"][SERVE_N[-1]]["launches"]
+    return out
+
+
+def seq_scan_phase(card, dev, inc):
+    """Phase 16, the kernel: seq_scan.cu's two entry points against their
+    plain versions on the card, bit for bit, at the xla tick's shape
+    [441, 512], the xla batch's block [4096, 64] and one lane of 4,096
+    samples with the state carried over two calls; their times (CUDA
+    events) beside the plain loops' (one run) and the bound. Launches made
+    here compare and time; the main path's are counted elsewhere."""
+    import numpy as np
+    import torch
+
+    from grail_tpu_torch.synth import seq_scan as sq
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for T, L in SEQ_SHAPES + ((4096, 1),):
+        f = (0.002 + 0.01 * rng.random((T, L))).astype(np.float32)
+        f[:9] = np.float32(0.25)              # the silent frame's wraps
+        f = torch.from_numpy(f).to(dev)
+        p0 = torch.from_numpy(rng.random(L).astype(np.float32)).to(dev)
+        jphi = torch.from_numpy(rng.random(L).astype(np.float32)).to(dev)
+        jcell = torch.from_numpy(rng.integers(0, 1000, L).astype(
+            np.int32)).to(dev)
+        if L == 1:                            # two calls, the state carried
+            h = T // 2
+            a1, q1 = sq.carrier_scan(p0, f[:h])
+            a2, q2 = sq.carrier_scan(q1, f[h:])
+            car_k = (torch.cat([a1, a2]), q2)
+            j1 = sq.jsched_scan(jphi, jcell, inc, h)
+            j2 = sq.jsched_scan(j1[2], j1[3], inc, T - h)
+            js_k = (torch.cat([j1[0], j2[0]], 1), torch.cat([j1[1], j2[1]],
+                                                            1), *j2[2:])
+        else:
+            car_k = sq.carrier_scan(p0, f)
+            js_k = sq.jsched_scan(jphi, jcell, inc, T)
+        car_p, car_plain_ms = once_ms(
+            lambda: sq.carrier_scan(p0, f, impl="plain"))
+        js_p, js_plain_ms = once_ms(
+            lambda: sq.jsched_scan(jphi, jcell, inc, T, impl="plain"))
+        row = {"carrier_plain_ms": car_plain_ms, "jsched_plain_ms":
+               js_plain_ms}
+        for name, k, p_ in (("carrier", car_k, car_p),
+                            ("jsched", js_k, js_p)):
+            row[f"{name}_max_abs"] = max(float(
+                (x.double() - y.double()).abs().max()) for x, y in zip(k, p_))
+            for x, y in zip(k, p_):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"[16 seq_scan] {name}_scan "
+                                         f"[{T}, {L}]: the kernel differs "
+                                         "from the plain version")
+        if L > 1:
+            # the kernels' own time: their C launches repeated between two
+            # events; one wrapper call between two events also counts the
+            # wrapper's host work
+            import ctypes
+
+            from grail_tpu_torch.synth._build import load_library
+
+            lib, vp = load_library(), ctypes.c_void_p
+            stream = vp(torch.cuda.current_stream(dev).cuda_stream)
+            track, pf = torch.empty_like(f), torch.empty_like(p0)
+            phi_o = torch.empty(T, L, device=dev)
+            cell_o = torch.empty(T, L, dtype=torch.int32, device=dev)
+            jp_o, jc_o = torch.empty_like(jphi), torch.empty_like(jcell)
+            c_args = [vp(t.data_ptr()) for t in (f, p0, track, pf)] + [
+                T, L, stream]
+            j_args = ([vp(jphi.data_ptr()), vp(jcell.data_ptr()),
+                       float(np.float32(inc))]
+                      + [vp(t.data_ptr()) for t in (phi_o, cell_o, jp_o,
+                                                    jc_o)] + [T, L, stream])
+            row["carrier_ms"] = launches_ms(
+                lambda: lib.grail_carrier_scan(*c_args), SEQ_REPS)
+            row["jsched_ms"] = launches_ms(
+                lambda: lib.grail_jsched_scan(*j_args), SEQ_REPS)
+            row["carrier_call_ms"] = median_ms(
+                lambda: sq.carrier_scan_cuda(p0, f))
+            row["jsched_call_ms"] = median_ms(lambda: sq.jsched_scan_cuda(
+                jphi, jcell, inc, T))
+            # bytes: the frequencies read and the track written, or the
+            # phases and cells written, and the [L] states; operations
+            # per lane-sample as the sources count them
+            row["carrier_bound"] = bound(T * L * 8 + L * 8,
+                                         T * L * CARRIER_OPS)
+            row["jsched_bound"] = bound(T * L * 8 + L * 16,
+                                        T * L * JSCHED_OPS)
+        out[(T, L)] = row
+        print(f"[16 seq_scan] [{T}, {L}]{' (two calls)' if L == 1 else ''}: "
+              f"carrier_scan and jsched_scan bit-equal to their plain "
+              f"versions (outputs and final states); "
+              + (f"carrier_scan {row['carrier_ms']} ms, jsched_scan "
+                 f"{row['jsched_ms']} ms (their own launches, {SEQ_REPS} "
+                 f"between two CUDA events, median of {REPS}); one wrapper "
+                 f"call {row['carrier_call_ms']} / {row['jsched_call_ms']} "
+                 f"ms; "
+                 f"bounds {bound_text(row['carrier_bound'])} / "
+                 f"{bound_text(row['jsched_bound'])}; "
+                 if L > 1 else "")
+              + f"plain loops {car_plain_ms} / {js_plain_ms} ms (one run); "
+              f"card {card}", flush=True)
+    return out
+
+
+def xla_batch_phase(card, dev, drive, texts, voice, fused_e2e_ms):
+    """Phase 16, the cores: synthesize_batch(64 texts, backend="xla") at
+    full width (S = 1, no lane padding) launches no kernel on its Q32
+    carrier and carrier_scan once a block with exact_carrier="kernel";
+    finite outputs of the right length, each within -60 dB of the fused
+    route on the card, "ae","ea" against the CPU's xla route; the scan core
+    (synthesize("ae", backend="scan")) against the CPU; the times."""
+    import numpy as np
+    import torch
+
+    import grail_tpu_torch as g
+    import grail_tpu_torch.api as papi
+    from grail_tpu_torch.api import BLOCK_SIZE, _round_up
+    from grail_tpu_torch.utils import sample_error_db
+
+    sr = float(voice.sample_rate)
+    scores = [g.text_to_score(t) for t in texts]
+    b = papi._Batch(scores, voice, None)
+    Ns, maxN = b.Ns, max(b.Ns)
+    route_x = g.route(B, maxN, None, dev, sr, "xla")
+    T = route_x[3]
+    if route_x[1:] != ("q32", 1, _round_up(maxN, BLOCK_SIZE)):
+        raise AssertionError(f"[16 xla] routed as {route_x}")
+    nb = T // BLOCK_SIZE
+
+    def outputs_ok(label, outs):
+        for o, n in zip(outs, Ns):
+            if (o.device.type != "cuda" or tuple(o.shape) != (n,)
+                    or not bool(torch.isfinite(o).all())):
+                raise AssertionError(f"{label}: output {tuple(o.shape)}, "
+                                     f"expected ({n},) finite on cuda")
+
+    outs, counts = drive("xla batch", lambda: g.synthesize_batch(
+        texts, backend="xla"), set())
+    outputs_ok("[16 xla batch]", outs)
+    outs_k, counts_k = drive("xla batch kcar", lambda: g.synthesize_batch(
+        texts, backend="xla", exact_carrier="kernel"), {"carrier_scan"})
+    outputs_ok("[16 xla batch kcar]", outs_k)
+    if counts_k["carrier_scan"] != nb:
+        raise AssertionError(f"[16 xla batch kcar] {counts_k} for {nb} "
+                             "blocks")
+    # each carrier against the fused route's same carrier: Q32 against the
+    # split's Q32, the f32 recurrence against the kernel's own (the two
+    # carriers drift apart by up to -60 dB over seconds, docs/PARITY.md)
+    fused = g.synthesize_batch(texts)
+    db_fused = [sample_error_db(x.cpu().numpy(), y.cpu().numpy())
+                for x, y in zip(outs, fused)]
+    fused = g.synthesize_batch(texts, exact_carrier="kernel")
+    db_fused_k = [sample_error_db(x.cpu().numpy(), y.cpu().numpy())
+                  for x, y in zip(outs_k, fused)]
+    if max(db_fused) >= GATE_DB or max(db_fused_k) >= GATE_DB:
+        raise AssertionError(f"[16 xla batch] against the fused route: "
+                             f"worst {max(db_fused)} / {max(db_fused_k)} dB")
+    del fused
+    short = texts[:2]
+    db_cpu = []
+    for kw, on_card in ((dict(), outs), (dict(exact_carrier="kernel"),
+                                         outs_k)):
+        ref = g.synthesize_batch(short, backend="xla", device="cpu", **kw)
+        db_cpu += [sample_error_db(x.cpu().numpy(), y.numpy())
+                   for x, y in zip(on_card, ref)]
+    if max(db_cpu) >= TOL_DB:
+        raise AssertionError(f"[16 xla batch] cuda vs cpu {db_cpu} dB")
+    del outs, outs_k
+    torch.cuda.empty_cache()
+    audio_s = sum(Ns) / sr
+    print(f"[16 xla batch] synthesize_batch({B} texts, backend='xla'): route "
+          f"{route_x} ({nb} blocks of {BLOCK_SIZE}); launches {counts}; with "
+          f"exact_carrier='kernel' {counts_k}; {B} finite outputs of the "
+          f"right length; against the fused route on the card worst "
+          f"{max(db_fused)} dB (q32), {max(db_fused_k)} dB (kcar); "
+          f"{short} against the CPU's xla route {db_cpu} dB", flush=True)
+
+    # times: end to end (host clock) and the program (CUDA events), beside
+    # the fused route's
+    e2e_ms = host_ms(lambda: g.synthesize_batch(texts, backend="xla"),
+                     sync=True)
+    e2e_k_ms = host_ms(lambda: g.synthesize_batch(
+        texts, backend="xla", exact_carrier="kernel"), sync=True)
+    prog_ms = median_ms(lambda: b.run("kernel", "q32", 1, T, dev, "xla"))
+    prog_k_ms = median_ms(lambda: b.run("kernel", "kcar", 1, T, dev, "xla"))
+    impl, carrier, S_f, T_f = g.route(B, maxN, None, dev, sr)
+    fused_prog_ms = median_ms(lambda: b.run(impl, carrier, S_f, T_f, dev))
+    print(f"[16 xla batch] times: end to end {e2e_ms} ms (q32), {e2e_k_ms} "
+          f"ms (kcar), {audio_s / (e2e_ms / 1e3)} x realtime; the xla "
+          f"program {prog_ms} ms (q32), {prog_k_ms} ms (kcar) (CUDA events, "
+          f"median of {REPS}); the fused route: end to end {fused_e2e_ms} "
+          f"ms (phase 7), program {fused_prog_ms} ms (S={S_f}); card {card}",
+          flush=True)
+
+    # the scan core: a Python loop over samples on the card
+    t0 = time.perf_counter()
+    scan, counts_s = drive("scan", lambda: g.synthesize(
+        "ae", backend="scan"), {"carrier_scan"})
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    ref = g.synthesize("ae", backend="scan", device="cpu")
+    db_scan = sample_error_db(scan.cpu().numpy(), ref.numpy())
+    if db_scan >= TOL_DB or scan.shape != ref.shape:
+        raise AssertionError(f"[16 scan] cuda vs cpu {db_scan} dB")
+    xla_ae = g.synthesize("ae", backend="xla")
+    print(f"[16 scan] synthesize('ae', backend='scan') on the card: "
+          f"{scan.shape[0]} samples in {scan_ms} ms (host clock, one run: "
+          f"one step of torch ops per sample); launches {counts_s}; cuda "
+          f"vs cpu {db_scan} dB; against the xla route "
+          f"{sample_error_db(scan.cpu().numpy(), xla_ae.cpu().numpy())} dB; "
+          f"card {card}", flush=True)
+    return dict(route=route_x, launches=counts_k["carrier_scan"],
+                db_fused=max(db_fused), db_fused_kcar=max(db_fused_k),
+                db_cpu=max(db_cpu), e2e_ms=e2e_ms, e2e_kcar_ms=e2e_k_ms,
+                program_ms=prog_ms, program_kcar_ms=prog_k_ms,
+                fused_program_ms=fused_prog_ms, scan_ms=scan_ms,
+                scan_db=db_scan)
+
+
+def xla_tick_phase(card, dev, drive):
+    """Phase 16, the xla tick: the main path StreamPool(512) at block 441
+    (10 ms at 44.1 kHz: not a multiple of 128, so the xla tick), plain,
+    english, 0.3 s lattice windows, fed as phase 11 over XLA_TICKS ticks
+    (windows slide from ~0.5 s on): one carrier_scan and one jsched_scan
+    launch per tick and no other kernel, ticks XLA_CHECK bit-equal (audio,
+    sf, si) to the same tick with the recurrences' plain versions from the
+    same state. Then at N = 128
+    and 512 (60 s windows, every session fed): a torch.profiler window of
+    PROFILE_TICKS steady ticks (both kernels each tick, 0 host->device
+    copies), the tick's times and read_block as a share of the 10.0 ms
+    budget; and a pool at block 1,024 with backend='xla' against the fused
+    pool fed alike (< -60 dB per sounding session). Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from grail_tpu_torch.runtime import stream as st
+    from grail_tpu_torch.utils import sample_error_db
+
+    blk = XLA_BLOCK
+    N = SERVE_N[-1]
+    texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(N)]
+    budget_ms = blk / 44100.0 * 1e3
+    out = {"budget_ms": budget_ms, "by_n": {}}
+
+    def main_path():
+        pool = st.StreamPool(N, voice="plain", language="english", block=blk,
+                             jitter_horizon_s=SLIDE_HORIZON_S)
+        if pool.backend != "xla":
+            raise AssertionError(f"block {blk} chose {pool.backend}")
+        for i in range(0, N, 2):
+            pool.feed(i, texts[i])
+        pool.flush()
+        audio, max_abs = [], 0.0
+        for t in range(XLA_TICKS):
+            if t < SERVE_FEED_TICKS:
+                for i in range(2 * t + 1, N, 2 * SERVE_FEED_TICKS):
+                    pool.feed(i, texts[i])
+                    pool.flush(i)
+            if t in XLA_CHECK:
+                sf0, si0 = pool._sf.clone(), pool._si.clone()
+            a = pool.read_block(sync=False)
+            if t in XLA_CHECK:
+                ins = dict(pool._dev, offsets=pool._dev["offsets"] - blk)
+                ref = st._xla_tick("plain", ins, sf0, si0, blk)
+                for name, x, y in zip(("audio", "sf", "si"),
+                                      (a, pool._sf, pool._si), ref):
+                    max_abs = max(max_abs, float(
+                        (x.double() - y.double()).abs().max()))
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            f"[16 xla tick] tick {t}: the {name} differs "
+                            "from the plain recurrences'")
+            audio.append(a)
+        return pool, torch.cat(audio, dim=1), max_abs
+
+    (pool, audio, max_abs), counts = drive(
+        "xla tick", main_path, {"carrier_scan", "jsched_scan"})
+    if any(counts[k] != XLA_TICKS for k in ("carrier_scan", "jsched_scan")):
+        raise AssertionError(f"[16 xla tick] launches {counts} for "
+                             f"{XLA_TICKS} ticks")
+    peak = audio.abs().amax(dim=1).cpu().numpy()
+    bases = np.asarray([s._lat_base for s in pool.sessions])
+    if not bool(torch.isfinite(audio).all()) or (peak > 0.01).sum() < N // 4 \
+            or not (bases > 0).any():
+        raise AssertionError(
+            f"[16 xla tick] finite {bool(torch.isfinite(audio).all())}, "
+            f"sounding {(peak > 0.01).sum()}, slid {(bases > 0).sum()}")
+    out.update(launches=counts["carrier_scan"], max_abs=max_abs)
+    print(f"[16 xla tick] main path StreamPool({N}, block={blk}) -> backend "
+          f"'{pool.backend}', plain, english, jitter_horizon_s "
+          f"{SLIDE_HORIZON_S}: {XLA_TICKS} ticks; launches {counts}; audio "
+          f"finite, {(peak > 0.01).sum()} of {N} sounding; "
+          f"{(bases > 0).sum()} windows slid; ticks 20-29 and 70-79 "
+          f"bit-equal to the plain recurrences on the card (audio, sf, si; "
+          f"max-abs {max_abs})", flush=True)
+    del pool, audio
+    torch.cuda.empty_cache()
+
+    for n in SERVE_N:
+        pool = st.StreamPool(n, voice="plain", language="english",
+                             block=blk)
+        for i in range(n):
+            pool.feed(i, texts[i])
+        pool.flush()
+        for _ in range(4):
+            pool.read_block()
+        pw = profiled_ticks(f"[16 xla tick] N={n}", pool.read_block,
+                            XLA_KERNELS)
+        ins = pool._prepare_tick()
+        sf, si = pool._sf, pool._si
+        tick_ms = median_ms(lambda: st._xla_tick("kernel", ins, sf, si, blk))
+        _, plain_ms = once_ms(lambda: st._xla_tick("plain", ins, sf, si,
+                                                   blk))
+        rb_ms = host_ms(pool.read_block)
+        row = dict(kernel_ms=tick_ms, tick_ms=tick_ms, plain_tick_ms=plain_ms,
+                   read_block_ms=rb_ms, idle_share=pw["idle"],
+                   carrier_device_ms=pw["kernel_device_ms"],
+                   device_ms=pw["dev_ms"], window_ms=pw["window_ms"],
+                   profiler=dict(h2d=pw["h2d"], d2h=pw["d2h"],
+                                 seen=pw["seen"]))
+        out["by_n"][n] = row
+        print(f"[16 xla tick] N={n}, block {blk} (budget {budget_ms} ms), "
+              f"{PROFILE_TICKS} steady ticks under torch.profiler: "
+              f"host->device copies {pw['h2d']}, device->host {pw['d2h']}, "
+              f"launches {pw['seen']}; window {pw['window_ms']} ms; "
+              f"carrier_scan device time {pw['kernel_device_ms']} ms per "
+              f"launch; device time by name {json.dumps(pw['dev_ms'])}; "
+              f"device idle share {pw['idle']}; the tick {tick_ms} ms (CUDA "
+              f"events, median of {REPS}), with the plain recurrences "
+              f"{plain_ms} ms (one run); read_block {rb_ms} ms = "
+              f"{rb_ms / budget_ms} of the budget; card {card}", flush=True)
+        del pool, ins
+        torch.cuda.empty_cache()
+
+    # backend='xla' at block 1,024 against the fused pool fed alike
+    def fed(backend):
+        pool = st.StreamPool(128, voice="plain", language="english",
+                             block=1024, backend=backend)
+        for i in range(128):
+            pool.feed(i, texts[i])
+        pool.flush()
+        return torch.cat([pool.read_block(sync=False)
+                          for _ in range(XLA_VS_FUSED_TICKS)], 1).cpu()
+
+    ax, af = fed("xla"), fed("fused")
+    dbs = [sample_error_db(ax[i].numpy(), af[i].numpy()) for i in range(128)
+           if float(af[i].abs().max()) > 0.01]
+    if len(dbs) < 32 or max(dbs) >= GATE_DB:
+        raise AssertionError(f"[16 xla tick] xla vs fused pool: {len(dbs)} "
+                             f"sounding, worst {max(dbs, default=None)} dB")
+    out["db_vs_fused"] = max(dbs)
+    print(f"[16 xla tick] StreamPool(128, block=1024, backend='xla') "
+          f"against the fused pool fed alike, {XLA_VS_FUSED_TICKS} ticks: "
+          f"worst of {len(dbs)} sounding sessions {max(dbs)} dB", flush=True)
     return out
 
 

@@ -7,17 +7,30 @@ The reference's chain (examples/cli.rs:175-184)
 
 runs as a host frontend (text -> timed phoneme elements -> a numpy Score
 per utterance) followed by one synthesizer program over the padded batch:
-the CUDA kernels on a GPU, their plain PyTorch versions on the CPU. Two
-backends:
+the CUDA kernels on a GPU, their plain PyTorch versions on the CPU. Four
+backends, under grail_tpu's names (`_BACKENDS`; its '_interpret' names are
+other names of the same programs, so that calls written for grail_tpu run
+unchanged):
 
-  * 'fused' (the default): one fused synthesizer call (synth/
-    kernel_fused.py), the counterpart of grail_tpu's backend "fused";
-  * 'core' ('pallas' is another name for it, so that calls written for
-    grail_tpu run unchanged): the round-1 program of grail_tpu's backend
+  * 'fused' (the default on both devices, `default_backend`): one fused
+    synthesizer call (synth/kernel_fused.py), the counterpart of
+    grail_tpu's backend "fused";
+  * 'core' (also 'pallas'): the round-1 program of grail_tpu's backend
     "pallas" — per 4096-sample block, the sequencer (synth/sequencer.py),
     the jitter (synth/jitter.py) and the DSP core (synth/kernel.py: a
     PyTorch coefficient prep, then the recurrence kernel), with the state
-    carried from block to block. It has the Q32 carrier only.
+    carried from block to block. It has the Q32 carrier only;
+  * 'xla': grail_tpu's associative-scan core (synth/synthesize.
+    _block_core) in plain PyTorch per 4096-sample block, its carrier the
+    Q32 accumulator, a host track, or the f32 recurrence of the kernel
+    synth/csrc/seq_scan.cu ('kcar');
+  * 'scan': grail_tpu's reference core (synth/synthesize.synthesize_scan),
+    a Python loop over samples of the recurrent part, its carrier the f32
+    recurrence (seq_scan.cu) or a host track.
+
+`xla` and `scan` run unsplit, with no lane padding (S = 1,
+T = round_up(maxN, 4096)). `synthesize_score`'s `pad_samples_to`, and a
+`sample_rate` other than the voice's, run on them only, as in grail_tpu.
 
 `route` decides the implementation, the carrier and the overlap-save split
 in one place.
@@ -63,7 +76,8 @@ from .synth.kernel_fused import (FusedTables, build_tables, fused_synth_slots,
                                  phase_q32_pre_block, synth_fused)
 from .synth.schedule import device_window
 from .synth.sequencer import expand_frequency, expand_score
-from .synth.synthesize import _INV_Q32, _Q32, SynthState
+from .synth.synthesize import (_INV_Q32, _Q32, SynthState, _block_core,
+                               carrier_scan, synthesize_scan)
 from .synth.score import Score, pad_score, score_from_phoneme_elems, stack_scores
 from .text.intonate import intonate
 from .text.language import Language
@@ -84,10 +98,14 @@ EXACT_CARRIER_AUTO_SECONDS = 30.0
 # in-kernel recurrence
 _EXACT_CARRIER_CHOICES = (None, True, False, "kernel")
 
-# backend names -> the program; 'pallas' is another name for 'core', as
-# grail_tpu calls that program. An unknown name is an error, never a silent
+# backend names -> the program, grail_tpu's names (api.py:119-120) and the
+# port's 'core'; 'pallas' is grail_tpu's name for the core program, and the
+# '_interpret' names (grail_tpu's Pallas interpreter, a CPU mode) are other
+# names of the same programs. An unknown name is an error, never a silent
 # fall-through to another program.
-_BACKENDS = {"fused": "fused", "core": "core", "pallas": "core"}
+_BACKENDS = {"fused": "fused", "fused_interpret": "fused", "core": "core",
+             "pallas": "core", "pallas_interpret": "core", "xla": "xla",
+             "scan": "scan"}
 
 # lane-samples per call of the core split's pre-pass (bounds its memory)
 _PRE_SAMPLES = 1 << 22
@@ -117,8 +135,19 @@ def _resolve_language(language) -> Language:
     return get_language(language) if isinstance(language, str) else language
 
 
+def default_backend() -> str:
+    """'fused' on both devices: the port's fused program runs its kernels
+    on a card and its plain version on the CPU. grail_tpu's default is
+    'xla' off a TPU (its fused kernel runs on the CPU only in interpret
+    mode)."""
+    return "fused"
+
+
 def _check_backend(backend) -> str:
-    """'fused' or 'core' for a backend name; raises ValueError otherwise."""
+    """The program ('fused', 'core', 'xla' or 'scan') a backend name runs;
+    None is default_backend(). Raises ValueError for an unknown name."""
+    if backend is None:
+        backend = default_backend()
     if not isinstance(backend, str) or backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: "
                          f"{', '.join(_BACKENDS)}")
@@ -176,10 +205,11 @@ def choose_split(B: int, maxN: int, slots: int):
 
 
 def route(B: int, maxN: int, exact_carrier, device,
-          sample_rate: float, backend: str = "fused", track: bool = False):
+          sample_rate: float, backend: Optional[str] = None,
+          track: bool = False):
     """The one routing decision: (implementation, carrier mode, S, T),
-    which synthesize_scores runs as they are, for `backend` 'fused' or
-    'core' ('pallas').
+    which synthesize_scores runs as they are, for any backend name
+    (None: default_backend()).
 
     implementation: 'kernel' (the CUDA kernels, device 'cuda') or 'plain'
     (their PyTorch versions, device 'cpu'); a CUDA device without CUDA
@@ -203,7 +233,14 @@ def route(B: int, maxN: int, exact_carrier, device,
     The core backend has the Q32 carrier only, as in grail_tpu: with it
     exact_carrier True or 'kernel' raises ValueError, and None stays Q32 at
     any length. Its S comes from choose_split with the core program's lane
-    capacity (kernel.CORE_MAX_LANES) on 'cuda'."""
+    capacity (kernel.CORE_MAX_LANES) on 'cuda'.
+
+    'xla' and 'scan' run unsplit: S = 1, T = round_up(maxN, BLOCK_SIZE), as
+    grail_tpu's _synth_jit and _synth_jit_batch do. A track applies to one
+    utterance on both; without one, 'xla' chooses 'kcar' (the f32 recurrence
+    of the carrier_scan kernel, once a block) or 'q32' as the fused backend
+    does, and 'scan' always steps the f32 recurrence ('kcar'), whatever
+    exact_carrier says, as grail_tpu's lax.scan core does."""
     if B < 1:
         raise ValueError(f"batch size must be >= 1, got {B}")
     if exact_carrier not in _EXACT_CARRIER_CHOICES:
@@ -212,6 +249,15 @@ def route(B: int, maxN: int, exact_carrier, device,
     backend = _check_backend(backend)
     dev = _resolve_device(device)
     impl = "kernel" if dev.type == "cuda" else "plain"
+    if backend in ("xla", "scan"):
+        T = _round_up(max(maxN, 1), BLOCK_SIZE)
+        if track and B == 1:
+            return impl, "track", 1, T
+        if backend == "scan" or exact_carrier in (True, "kernel") or (
+                exact_carrier is None
+                and maxN > EXACT_CARRIER_AUTO_SECONDS * float(sample_rate)):
+            return impl, "kcar", 1, T
+        return impl, "q32", 1, T
     if backend == "core":
         if exact_carrier in (True, "kernel"):
             raise ValueError(
@@ -617,18 +663,63 @@ def _core_split_program(lanes: _CoreLanes, T: int, S: int, sr: float, inc,
     return _reassemble(full, lanes.score.cum_length.shape[0], T, S)
 
 
+def _xla_run(setup: _CoreSetup, carrier: str, track=None) -> torch.Tensor:
+    """The xla program (grail_tpu's _synth_jit_batch with backend "xla",
+    and _synth_jit's block loop) over the blocks of an unsplit core setup:
+    per block the frames, then _block_core with the state carried, its
+    carrier the Q32 accumulator ('q32'), the carrier_scan recurrence from
+    the carried phase ('kcar') or the block's window of the host `track`
+    ('track', one utterance); zero past each utterance's end. Each block's
+    scan temporaries (~100 MB at 64 lanes) are freed before the next.
+    Audio [L, nb * BLOCK_SIZE]."""
+    state, outs = setup.state, []
+    car = None
+    if carrier == "track":
+        car = _pad_track(track, setup.nb * BLOCK_SIZE,
+                         state.phase.device)[:, None]
+    for i in range(setup.nb):
+        elems, valid = setup.frames(i)
+        if carrier == "kcar":
+            car_b, phase_out = carrier_scan(state.phase, elems.frequency)
+            out, state = _block_core(elems, state, carrier=car_b)
+            state = state._replace(phase=phase_out)
+        else:
+            car_b = (None if car is None
+                     else car[i * BLOCK_SIZE:(i + 1) * BLOCK_SIZE])
+            out, state = _block_core(elems, state, carrier=car_b)
+        outs.append(out.T * valid)
+        del elems, valid, out, car_b
+    return torch.cat(outs, dim=1)
+
+
+def _scan_run(lanes: _CoreLanes, T: int, sr: float, inc,
+              track=None) -> torch.Tensor:
+    """The scan program (grail_tpu's lax.scan core): the frames of all T
+    samples, then synthesize_scan from the zero state, its carrier the f32
+    recurrence or the host `track` (one utterance); zero past each
+    utterance's end. Audio [L, T]."""
+    dev = lanes.score.cum_length.device
+    elems, valid = _core_frames(lanes, sr, T, 0, device_window(inc, 0, T,
+                                                               dev), False)
+    car = None if track is None else _pad_track(track, T, dev)[:, None]
+    out, _ = synthesize_scan(elems, carrier=car)
+    return out.T * valid
+
+
 class _Batch:
     """A batch of scores made ready for one synthesizer call: voices
     resolved and checked, seeds, scores padded to one element count, and
-    each utterance's sample count."""
+    each utterance's sample count. `sample_rate` renders the scores at
+    another rate than the voices' (synthesize_score's, on xla and scan)."""
 
-    def __init__(self, scores_raw: list, voice, seeds):
+    def __init__(self, scores_raw: list, voice, seeds, sample_rate=None):
         self.B = B = len(scores_raw)
         self.voices = [_resolve_voice(v) for v in _per_item(voice, B, "voice")]
         v0 = self.v0 = self.voices[0]
-        self.sr = sr = float(v0.sample_rate)
+        sr = float(v0.sample_rate)
         if any(float(v.sample_rate) != sr for v in self.voices):
             raise ValueError("batched voices must share a sample rate")
+        self.sr = sr = float(sample_rate) if sample_rate else sr
         if any(abs(v.jitter_frequency - v0.jitter_frequency) >= 1e-9
                for v in self.voices):
             raise ValueError("batched voices must share a jitter rate")
@@ -682,11 +773,21 @@ class _Batch:
             backend: str = "fused", track=None) -> List[torch.Tensor]:
         """Synthesize; one tensor per utterance, sliced to its length.
         `track` is the host carrier track that the carrier mode 'track'
-        reads (one utterance, fused backend)."""
+        reads (one utterance; fused, xla or scan backend)."""
         if (carrier == "track") != (track is not None):
             raise ValueError(f"carrier mode {carrier!r} with"
                              f"{'out' if track is None else ''} a track")
         inc = self.v0.jitter_frequency
+        if backend in ("xla", "scan"):
+            if S != 1:
+                raise ValueError(f"the {backend} backend runs unsplit, "
+                                 f"got S={S}")
+            lanes = self.core_lanes(T, dev)
+            audio = (_scan_run(lanes, T, self.sr, inc, track)
+                     if backend == "scan" else
+                     _xla_run(_core_unsplit_setup(lanes, T, self.sr, inc),
+                              carrier, track))
+            return [audio[i, :n] for i, n in enumerate(self.Ns)]
         if backend == "core":
             lanes = self.core_lanes(T, dev)
             audio = (_core_split_program(lanes, T, S, self.sr, inc, impl)
@@ -706,11 +807,12 @@ class _Batch:
         return [audio[i, :n] for i, n in enumerate(self.Ns)]
 
 
-def _applicable_track(carrier_tracks, B: int, backend: str):
+def _applicable_track(carrier_tracks, B: int, backend):
     """The host carrier track that applies, or None: a track is read for
-    one utterance on the fused backend (per-lane tracks for a batch would
-    cost a host pre-pass and an upload per lane)."""
-    if carrier_tracks is None or B != 1 or _check_backend(backend) != "fused":
+    one utterance on the fused, xla and scan backends, as in grail_tpu
+    (per-lane tracks for a batch would cost a host pre-pass and an upload
+    per lane; the core backend has the Q32 carrier only)."""
+    if carrier_tracks is None or B != 1 or _check_backend(backend) == "core":
         return None
     if len(carrier_tracks) != B:
         raise ValueError(f"{len(carrier_tracks)} carrier tracks for {B} "
@@ -732,6 +834,9 @@ def _synthesize_split(scores: Sequence[Score], voice="generic",
     scores = list(scores)
     if not scores:
         return []
+    if _check_backend(backend) not in ("fused", "core"):
+        raise ValueError(f"backend {backend!r} has no split; the split runs "
+                         "the fused and core programs")
     b = _Batch(scores, voice, seeds)
     track = _applicable_track(carrier_tracks, b.B, backend)
     impl, carrier = route(b.B, max(b.Ns), False, device, b.sr, backend,
@@ -744,7 +849,7 @@ def _synthesize_split(scores: Sequence[Score], voice="generic",
 def synthesize_scores(scores: Sequence[Score], voice="generic",
                       seeds: Optional[Sequence[int]] = None,
                       exact_carrier=None, device="cuda",
-                      backend="fused",
+                      backend: Optional[str] = None,
                       carrier_tracks: Optional[Sequence] = None
                       ) -> List[torch.Tensor]:
     """Synthesize prepared per-utterance Scores in one synthesizer program.
@@ -752,13 +857,13 @@ def synthesize_scores(scores: Sequence[Score], voice="generic",
     `voice` is one voice/name or one per score (shared sample rate and
     jitter rate; per-voice jitter deltas run per utterance). Scores pad to a
     shared element count and length; the outputs are float32 tensors on
-    `device`, sliced to each utterance's true length. `backend` is 'fused'
-    (default), 'core' or its other name 'pallas' (see the module doc);
+    `device`, sliced to each utterance's true length. `backend`: any name of
+    `_BACKENDS` (see the module doc), None for default_backend();
     `exact_carrier` and the overlap-save split: see `route`.
     `carrier_tracks` (one per score, entries may be None): exact f32
     carrier phase tracks (oracle/native.native_carrier_phase_track), read
-    for one utterance on the fused backend, where a track takes precedence
-    over `exact_carrier` and keeps the split."""
+    for one utterance on the fused, xla and scan backends, where a track
+    takes precedence over `exact_carrier` (and keeps the fused split)."""
     scores = list(scores)
     if not scores:
         return []
@@ -776,7 +881,8 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
                      contour: bool = False, speaking_rate: float = 1.0,
                      sample_rate: Optional[float] = None,
                      exact_carrier=None, device="cuda",
-                     backend="fused") -> List[torch.Tensor]:
+                     backend: Optional[str] = None,
+                     use_scan: bool = False) -> List[torch.Tensor]:
     """Batched synthesis: texts -> one float32 waveform tensor per text, on
     `device` ('cuda' runs the kernels; 'cpu' their plain PyTorch versions).
 
@@ -790,9 +896,11 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
     the split; the in-kernel recurrence, unsplit, for a batch or a voice
     file), True (the exact carrier at any length, by the same rule),
     'kernel' (pin the in-kernel recurrence), False (Q32 carrier).
-    `backend`: 'fused' (default) or 'core' ('pallas'), the round-1 program,
-    which has the Q32 carrier only (exact_carrier True raises; None stays
-    Q32)."""
+    `backend`: 'fused' (None: default_backend()), 'core' ('pallas'), the
+    round-1 program, which has the Q32 carrier only (exact_carrier True
+    raises; None stays Q32), 'xla' or 'scan' (see the module doc and
+    `route`); the '_interpret' names are other names of 'fused' and 'core'.
+    `use_scan=True` with no backend named means 'scan', as in grail_tpu."""
     if isinstance(texts, str):
         raise TypeError(
             "texts must be a sequence of strings, not a single string — "
@@ -813,6 +921,8 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
         voices = [resampled[id(v)] for v in voices]
     seeds = _seeds(seeds, B)
     _resolve_device(device)    # fail before the host frontend runs
+    if backend is None and use_scan:
+        backend = "scan"
     _check_backend(backend)
 
     pelems_all = [text_to_phoneme_elems(t, v, lng, contour=contour,
@@ -830,12 +940,12 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
 
 
 def _solo_carrier_track(pelems, v: Voice, seed: int, exact_carrier,
-                        backend: str) -> Optional[np.ndarray]:
+                        backend) -> Optional[np.ndarray]:
     """The host carrier track of a solo utterance, where the caller's
     `exact_carrier` asks for one (True, or None past
-    EXACT_CARRIER_AUTO_SECONDS) on the fused backend; None otherwise, and
-    for a voice without a registered spec."""
-    if _check_backend(backend) != "fused" or exact_carrier == "kernel":
+    EXACT_CARRIER_AUTO_SECONDS) on a backend that reads tracks (fused, xla,
+    scan); None otherwise, and for a voice without a registered spec."""
+    if _check_backend(backend) == "core" or exact_carrier == "kernel":
         return None
     if exact_carrier or (exact_carrier is None
                          and _wants_exact_carrier(pelems)):
@@ -845,48 +955,83 @@ def _solo_carrier_track(pelems, v: Voice, seed: int, exact_carrier,
 
 def synthesize_score(score: Score, voice, seed: int = 0,
                      sample_rate: Optional[float] = None,
-                     backend: str = "fused",
+                     use_scan: bool = False,
+                     pad_samples_to: Optional[int] = None,
+                     backend: Optional[str] = None,
                      carrier_track: Optional[np.ndarray] = None,
                      exact_carrier=None, device="cuda") -> torch.Tensor:
-    """Synthesize one prepared Score to a float32 waveform tensor:
-    synthesize_scores with B = 1, the solo route (the counterpart of
-    grail_tpu's synthesize_score on its kernel backends).
+    """Synthesize one prepared Score to a float32 waveform tensor, the solo
+    route (grail_tpu's synthesize_score): synthesize_scores with B = 1 on
+    the fused and core backends, the unsplit xla or scan program otherwise.
+
+    `backend` None means default_backend(), or 'scan' with use_scan=True;
+    use_scan=True with backend 'xla' runs the scan core too.
+    `pad_samples_to` pins the length: it must cover the utterance and is
+    rounded up to a multiple of BLOCK_SIZE. It, and a `sample_rate` other
+    than the voice's (the score is then rendered at that rate, as grail_tpu
+    renders it), run on xla or scan only, as in grail_tpu: with no backend
+    named they take 'xla'; a fused or core backend named raises ValueError
+    (resample the voice first, voice.resampled(sr), as synthesize does).
 
     `carrier_track` (optional f32 [<= T]): the reference's exact
     per-sample carrier phase (oracle/native.native_carrier_phase_track);
-    on the fused backend it replaces the carrier accumulator and keeps the
-    split. `synthesize` computes it for long utterances. A `sample_rate`
-    other than the voice's raises: resample the voice first
-    (voice.resampled(sr), as synthesize does)."""
+    on the fused, xla and scan backends it replaces the carrier accumulator
+    (and keeps the fused split). `synthesize` computes it for long
+    utterances."""
     v = _resolve_voice(voice)
-    if sample_rate and float(sample_rate) != float(v.sample_rate):
-        raise ValueError(
-            f"sample_rate {float(sample_rate)} differs from the voice's "
-            f"({float(v.sample_rate)}); resample the voice first "
-            "(voice.resampled(sr), as synthesize() does)")
-    return synthesize_scores([score], v, seeds=[seed],
-                             exact_carrier=exact_carrier, device=device,
-                             backend=backend,
-                             carrier_tracks=[carrier_track])[0]
+    sr = float(sample_rate or v.sample_rate)
+    explicit = backend is not None
+    name = backend if explicit else ("scan" if use_scan
+                                     else default_backend())
+    program = _check_backend(name)
+    if program in ("fused", "core"):
+        if pad_samples_to is None and sr == float(v.sample_rate):
+            return synthesize_scores([score], v, seeds=[seed],
+                                     exact_carrier=exact_carrier,
+                                     device=device, backend=name,
+                                     carrier_tracks=[carrier_track])[0]
+        if explicit:
+            raise ValueError(
+                f"backend={backend!r} supports neither pad_samples_to nor a "
+                "sample_rate differing from the voice's "
+                f"({sr} vs {float(v.sample_rate)}); resample the voice first "
+                "(voice.resampled(sr), as synthesize() does) or use "
+                "backend='xla'/'scan'")
+        program = "xla"
+    if use_scan:
+        program = "scan"
+    b = _Batch([score], v, [seed], sample_rate=sr)
+    N = b.Ns[0]
+    impl, carrier, S, T = route(1, N, exact_carrier, device, sr, program,
+                                track=carrier_track is not None)
+    if pad_samples_to is not None:
+        if pad_samples_to < N:
+            raise ValueError(
+                f"pad_samples_to={pad_samples_to} < utterance length {N}")
+        T = _round_up(max(int(pad_samples_to), 1), BLOCK_SIZE)
+    return b.run(impl, carrier, S, T, torch.device(device), program,
+                 carrier_track)[0]
 
 
 def synthesize(text: str, voice="generic", language="generic", seed: int = 0,
                contour: bool = False, speaking_rate: float = 1.0,
                sample_rate: Optional[float] = None, exact_carrier=None,
-               device="cuda", backend="fused") -> torch.Tensor:
+               device="cuda", backend: Optional[str] = None,
+               use_scan: bool = False) -> torch.Tensor:
     """Text -> float32 waveform tensor (the reference CLI chain, one
     utterance): synthesize_batch of one text, which runs the host frontend,
     the carrier pre-pass where `exact_carrier` asks for it, and the solo
     route. A `sample_rate` other than the voice's retargets the voice
-    first."""
+    first. `backend` and `use_scan`: as for synthesize_batch."""
     return synthesize_batch([text], voice, language, seeds=[seed],
                             contour=contour, speaking_rate=speaking_rate,
                             sample_rate=sample_rate,
                             exact_carrier=exact_carrier, device=device,
-                            backend=backend)[0]
+                            backend=backend, use_scan=use_scan)[0]
 
 
-__all__ = ["route", "choose_split", "text_to_phoneme_elems", "text_to_score",
+__all__ = ["route", "choose_split", "default_backend",
+           "text_to_phoneme_elems", "text_to_score",
            "synthesize_scores", "synthesize_batch", "synthesize_score",
            "synthesize",
            "EXACT_CARRIER_AUTO_SECONDS", "BLOCK_SIZE", "WARMUP", "MAX_SPLIT"]

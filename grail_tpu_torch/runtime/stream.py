@@ -9,11 +9,21 @@ appends timed elements to a rolling score; a read synthesizes the next
 block with all DSP state carried across calls (carrier phase, filter
 states, Lehmer seed, the jitter phase and its lattice window).
 
-The device program is one launch of the fused synthesizer in its 'carry'
-mode (synth/kernel_fused.py; the CUDA kernel on a card, its plain PyTorch
-version on the CPU) with the exact f32 carrier: every lane steps the jitter
-recurrence from its carried (phase, absolute cell) and reads its sliding
-lattice window at row `cell - lat_base`.
+The device program is a tick, one of two with one signature and one
+carried state (the packed rows `sf`/`si` of the fused kernel's carry mode),
+both with the exact f32 carrier: every lane steps the jitter recurrence
+from its carried (phase, absolute cell) and reads its sliding lattice window
+at row `cell - lat_base`.
+
+  * the carry tick (`_tick`): one launch of the fused synthesizer in its
+    'carry' mode (synth/kernel_fused.py; the CUDA kernel on a card, its
+    plain PyTorch version on the CPU); blocks that are multiples of 128;
+  * the xla tick (`_xla_tick`, grail_tpu's _stream_block_batch and, for a
+    solo session, _stream_block): the jitter and carrier recurrences in the
+    kernel synth/csrc/seq_scan.cu (their plain versions on the CPU), the
+    sequencer, the jitter and the associative-scan core
+    (synth/synthesize._block_core) in plain PyTorch. Any block; a pool
+    with backend='xla', or a block that is not a multiple of 128, runs it.
 
   * `StreamSession` — one session: the host frontend (commands, rolling
     score, rebase, idle horizon, lattice window slides), a solo `read`
@@ -27,8 +37,8 @@ lattice window at row `cell - lat_base`.
     real-time thread's tick is one replay of a CUDA graph captured for the
     adopted set (on the CPU, the same tick run eagerly).
 
-The JAX pool's `xla` backend and its mesh sharding are not ported here;
-asking for them raises: they come with a later slice.
+The JAX pool's mesh sharding is not ported here; asking for it raises: it
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -47,9 +57,14 @@ from ..api import _resolve_device
 from ..core.constants import NUM_FORMANTS
 from ..languages import get_language
 from ..synth import kernel_fused as kf
-from ..synth.jitter import JitterLattice
-from ..synth.score import (_reference_boundary_samples_np, merge_glides,
-                           score_from_phoneme_elems, stack_scores)
+from ..synth.elem import SynthesisElem
+from ..synth.jitter import JitterLattice, apply_jitter
+from ..synth.score import (Score, _reference_boundary_samples_np,
+                           merge_glides, score_from_phoneme_elems,
+                           stack_scores)
+from ..synth.seq_scan import carrier_scan, jsched_scan
+from ..synth.sequencer import expand_score
+from ..synth.synthesize import SynthState, _block_core
 from ..text.intonate import PhonemeElem, intonate
 from ..text.phonemes import Phoneme
 from ..text.transcribe import transcribe_chars, transcribe_partial
@@ -313,13 +328,74 @@ def _tick(impl: str, dev: dict, sf: torch.Tensor, si: torch.Tensor,
                                     lat_base=dev["lat_base"], inc=dev["inc"])
 
 
+def _score_view(dev: dict) -> Score:
+    """The score tables of `dev` (scal [B, E, 4], vec [B, E, 6, 8]) as a
+    batched Score of views, what the sequencer reads: the same float32
+    values, so expand_score renders what the carry kernel renders from the
+    tables. `length` is None: the sequencer reads the cumulative ends."""
+    scal, vec = dev["scal"], dev["vec"]
+    elem = SynthesisElem(scal[..., 0], *(vec[:, :, k] for k in range(6)))
+    return Score(elem, scal[..., 3] > 0.5, None, scal[..., 2], scal[..., 1])
+
+
+def _xla_tick(impl: str, dev: dict, sf: torch.Tensor, si: torch.Tensor,
+              blk: int, masked: bool = True):
+    """One xla tick over the device inputs `dev` (as _tick's, and the
+    sample rate `sr`): (audio [B, blk], sf, si), grail_tpu's
+    _stream_block_batch with use_pallas off (masked=True: jitter off past a
+    score's end) or, for a solo session, _stream_block (masked=False).
+
+    It unpacks the carried rows into the jitter state (jphi, jcell) and a
+    SynthState, steps the jitter recurrence (jsched_scan), renders the
+    frames (expand_score at each lane's offset, apply_jitter at rows
+    cell - lat_base), steps the f32 carrier (carrier_scan), runs
+    _block_core on the carrier track, and packs the new state back into
+    rows of the carry mode's layout, so checkpoints read one layout
+    whichever tick ran. `impl` is 'kernel' (seq_scan.cu) or 'plain' for the
+    two recurrences; the rest is plain PyTorch on the inputs' device. No
+    host synchronisation: a CUDA graph can capture it."""
+    F = NUM_FORMANTS
+    phi, cell, jphi, jcell = jsched_scan(si[:, 3].view(torch.float32),
+                                         si[:, 4], dev["inc"], blk, impl)
+    elems, valid = expand_score(_score_view(dev), dev["sr"], blk,
+                                offset=dev["offsets"])
+    par = dev["par"]
+    elems = apply_jitter(elems, JitterLattice(*dev["lat"]), par[:, 0],
+                         par[:, 1], par[:, 2],
+                         (phi, cell - dev["lat_base"][:, None]),
+                         mask=valid if masked else None)
+    elems = SynthesisElem(*(f.transpose(0, 1) for f in elems))
+    state = SynthState(phase=si[:, 2].view(torch.float32),
+                       filter_state_a=sf[:, :F],
+                       filter_state_b=sf[:, F:2 * F],
+                       filter_state_c=sf[:, 2 * F:],
+                       seed=kf._i32_to_u32(si[:, 1]))
+    car, phase = carrier_scan(state.phase, elems.frequency, impl)
+    out, st = _block_core(elems, state, carrier=car)
+    sf2 = torch.cat([st.filter_state_a, st.filter_state_b,
+                     st.filter_state_c], dim=1)
+    si2 = torch.stack([si[:, 0], kf._u32_to_i32(st.seed),
+                       phase.view(torch.int32), jphi.view(torch.int32),
+                       jcell], dim=1)
+    return out.T, sf2, si2
+
+
+# the ticks by program, and the LAUNCHES keys of the kernels that one
+# served tick's graph holds (serve_tick counts them per replay)
+_TICKS = {"fused": _tick, "xla": _xla_tick}
+_TICK_LAUNCHES = {"fused": ("fused_synth_carry",),
+                  "xla": ("carrier_scan", "jsched_scan")}
+
+
 def _served_tick(impl: str, dev: dict, sf: torch.Tensor, si: torch.Tensor,
-                 offsets: torch.Tensor, blk: int, conv):
+                 offsets: torch.Tensor, blk: int, conv, program="fused"):
     """One served tick into fixed buffers, as serve mode captures it: the
-    carry launch over the table set `dev` from `offsets`, the carried rows
-    written back into `sf` and `si` in place, the offsets advanced in place
-    and the audio converted by `conv` (None for f32). Returns the audio."""
-    out, sf2, si2 = _tick(impl, dict(dev, offsets=offsets), sf, si, blk)
+    tick of `program` over the table set `dev` from `offsets`, the carried
+    rows written back into `sf` and `si` in place, the offsets advanced in
+    place and the audio converted by `conv` (None for f32). Returns the
+    audio."""
+    out, sf2, si2 = _TICKS[program](impl, dict(dev, offsets=offsets), sf,
+                                    si, blk)
     sf.copy_(sf2)
     si.copy_(si2)
     offsets.add_(blk)
@@ -346,9 +422,10 @@ def _up(x, device, dtype=None) -> torch.Tensor:
 class StreamSession:
     """Incremental text -> audio session with carried DSP state.
 
-    `device` ('cuda' by default, 'cpu' runs the plain version) is where a
+    `device` ('cuda' by default, 'cpu' runs the plain versions) is where a
     solo read synthesizes; a session owned by a StreamPool is read through
-    the pool."""
+    the pool. A solo read runs the carry tick on one lane when `block` is a
+    multiple of 128, else the xla tick (grail_tpu's _stream_block)."""
 
     def __init__(self, voice="generic", language="generic", seed: int = 0,
                  block: int = 1024, contour: bool = False,
@@ -360,9 +437,8 @@ class StreamSession:
         self.language = get_language(language) if isinstance(language, str) \
             else language
         self.block = int(block)
-        if self.block <= 0 or self.block % kf.CHUNK:
-            raise ValueError(f"block={self.block} must be a positive "
-                             f"multiple of {kf.CHUNK}")
+        if self.block <= 0:
+            raise ValueError(f"block={self.block} must be positive")
         self.contour = contour
         self.speaking_rate = speaking_rate
         self.sample_rate = float(self.voice.sample_rate)
@@ -862,8 +938,9 @@ class StreamSession:
 
     def _read_block(self) -> np.ndarray:
         """One block of the solo stream: the pool's carry tick on one lane
-        (the kernel on a card), with this session's score and window
-        uploaded for it."""
+        (the kernel on a card), or the xla tick unmasked (grail_tpu's
+        _stream_block) for a block that is not a multiple of 128, with this
+        session's score and window uploaded for it."""
         blk = self.block
         self._ensure_audio_horizon(blk)
         self._rebase()
@@ -883,9 +960,13 @@ class StreamSession:
                     cells))))),
             lat_base=_up([self._lat_base], dev, torch.int32),
             offsets=_up([self._consumed_samples], dev, torch.int32),
-            inc=float(np.float32(v.jitter_frequency)))
-        out, self._sf, self._si = _tick(_impl(dev), inputs, self._sf,
-                                        self._si, blk)
+            inc=float(np.float32(v.jitter_frequency)), sr=self.sample_rate)
+        if blk % kf.CHUNK:
+            out, self._sf, self._si = _xla_tick(_impl(dev), inputs, self._sf,
+                                                self._si, blk, masked=False)
+        else:
+            out, self._sf, self._si = _tick(_impl(dev), inputs, self._sf,
+                                            self._si, blk)
         self._consumed_samples += blk
         self._jitter_pos += blk
         return out[0].cpu().numpy()
@@ -1060,23 +1141,26 @@ class StreamSession:
 # StreamPool
 # ---------------------------------------------------------------------------
 
-_BACKENDS = ("fused", "fused_interpret")
+# pool backend names -> the tick's program ('fused_interpret' is grail_tpu's
+# interpreter name for its fused tick)
+_BACKENDS = {"fused": "fused", "fused_interpret": "fused", "xla": "xla"}
 
 
 class StreamPool:
-    """N concurrent streaming sessions, one launch of the fused synthesizer
-    per tick for all of them.
+    """N concurrent streaming sessions, one tick program for all of them:
+    the fused synthesizer's carry launch, or the xla tick.
 
     The serving shape: each tick synthesizes the next `block` samples for
-    every session in one carry-mode launch (the kernel on `device='cuda'`,
-    the default; the plain version on 'cpu'). Session frontends (feed,
-    flush, commands, rebasing) stay per-session on the host.
+    every session in one program (the kernels on `device='cuda'`, the
+    default; the plain versions on 'cpu'). Session frontends (feed, flush,
+    commands, rebasing) stay per-session on the host.
 
-    `backend` is 'fused' (default); 'fused_interpret' is another name for
-    it, so that calls written for grail_tpu run unchanged. The JAX pool's
-    'xla' backend, a `mesh` and a `block` that is not a multiple of 128
-    (which grail_tpu serves on 'xla') raise ValueError: they come with a
-    later slice.
+    `backend` is 'fused' (default: one carry-mode launch per tick;
+    'fused_interpret' is another name for it, so that calls written for
+    grail_tpu run unchanged) or 'xla' (the xla tick: one carrier_scan and
+    one jsched_scan launch and plain PyTorch). A `block` that is not a
+    multiple of 128 selects 'xla', as in grail_tpu. A `mesh` raises
+    ValueError: it comes with a later slice.
 
     `pin_elems` pins the element-count bucket E of the device tables (to
     at least `_bucket(pin_elems)`), so that a session crossing a power of
@@ -1108,26 +1192,21 @@ class StreamPool:
             raise ValueError(
                 f"output must be 'f32', 'pcm16' or 'ulaw', got {output!r}")
         backend = "fused" if backend is None else backend
-        if backend == "xla":
-            raise ValueError(
-                "StreamPool backend 'xla' (grail_tpu's associative-scan "
-                f"tick) is not ported yet: it comes with {_LATER_SLICE}; "
-                "use 'fused'")
         if backend not in _BACKENDS:
-            raise ValueError(f"StreamPool backend must be 'fused' or "
-                             f"'fused_interpret', got {backend!r}")
+            raise ValueError(f"StreamPool backend must be 'fused', "
+                             f"'fused_interpret' or 'xla', got {backend!r}")
         if mesh is not None:
             raise ValueError("a mesh-sharded StreamPool is not ported yet: "
                              f"it comes with {_LATER_SLICE}")
-        if int(block) <= 0 or int(block) % kf.CHUNK:
-            raise ValueError(
-                f"block={block} is not a positive multiple of {kf.CHUNK}: "
-                "grail_tpu serves such blocks on its 'xla' tick, which "
-                f"comes with {_LATER_SLICE}")
+        if int(block) <= 0:
+            raise ValueError(f"block={block} must be positive")
+        if int(block) % kf.CHUNK:
+            backend = "xla"     # the carry kernel runs whole chunks
         self.device = _resolve_device(device)
         self._impl = _impl(self.device)
         self.output = output
         self.backend = backend
+        self._program = _BACKENDS[backend]
         self.pin_elems = int(pin_elems) if pin_elems else 0
         seeds = list(seeds) if seeds is not None else list(range(n))
         # jitter_horizon_s sizes each session's device-resident lattice
@@ -1327,6 +1406,7 @@ class StreamPool:
         else:
             self._dev = rows
         self._dev["inc"] = float(np.float32(inc))
+        self._dev["sr"] = self.sample_rate
         self._cache_key = key
 
     def read_block(self, sync: bool = True):
@@ -1346,8 +1426,8 @@ class StreamPool:
                                "first")
         blk = self.block * int(k)
         dev = self._prepare_tick(blk)
-        out, self._sf, self._si = _tick(self._impl, dev, self._sf, self._si,
-                                        blk)
+        out, self._sf, self._si = _TICKS[self._program](
+            self._impl, dev, self._sf, self._si, blk)
         dev["offsets"].add_(blk)       # advanced on the device
         # all sessions advance in lockstep: ONE pool-level lag integer
         self._lag_samples += blk
@@ -1413,8 +1493,9 @@ class StreamPool:
     # captured on the frontend thread against that set's tables and the
     # pool's fixed state and offsets buffers, so the real-time thread
     # never builds or captures: its tick is one replay (the carry launch,
-    # the state written back, the offsets advanced, the output conversion)
-    # and one copy of the audio out of the graph's buffer. A published set
+    # or the xla tick's two kernels and its torch ops; the state written
+    # back, the offsets advanced, the output conversion) and one copy of
+    # the audio out of the graph's buffer. A published set
     # is never written again (the frontend scatters into copies, see
     # _upload_scores), so a queued replay cannot read a half-applied feed;
     # a new set costs a device copy of the group that changed and one
@@ -1481,7 +1562,7 @@ class StreamPool:
             try:
                 out = _served_tick(self._impl, swap["dev"], self._sf,
                                    self._si, self._serve_off, self.block,
-                                   _OUTPUTS[self.output])
+                                   _OUTPUTS[self.output], self._program)
             finally:
                 g.capture_end()
         swap.update(graph=g, out=out)
@@ -1520,7 +1601,8 @@ class StreamPool:
                     dev = self._prepare_tick()
                     _served_tick(self._impl, dev, self._sf.clone(),
                                  self._si.clone(), dev["offsets"].clone(),
-                                 self.block, _OUTPUTS[self.output])
+                                 self.block, _OUTPUTS[self.output],
+                                 self._program)
                     torch.cuda.synchronize(self.device)
             self._serve_build()             # the first publish
         except BaseException:
@@ -1566,7 +1648,8 @@ class StreamPool:
         ticks in flight.
 
         On a card the tick is one replay of the adopted set's CUDA graph,
-        counted as one fused_synth_carry launch, on the device's default
+        counted as the launches it holds (one fused_synth_carry, or on the
+        xla tick one carrier_scan and one jsched_scan), on the device's default
         stream, where the frontend's device work runs too: call it with
         that stream current (as a thread has unless it set another). A
         failed replay raises, and so does the next serve_tick after a
@@ -1586,12 +1669,13 @@ class StreamPool:
         cur = self._serve_cur
         if self._impl == "kernel":
             cur["graph"].replay()
-            kf.LAUNCHES["fused_synth_carry"] += 1   # the launch it holds
+            for name in _TICK_LAUNCHES[self._program]:   # the launches it
+                kf.LAUNCHES[name] += 1                   # holds
             out = cur["out"].clone()
         else:
             out = _served_tick(self._impl, cur["dev"], self._sf, self._si,
                                self._serve_off, self.block,
-                               _OUTPUTS[self.output])
+                               _OUTPUTS[self.output], self._program)
         self._serve_ticks += 1
         return out
 

@@ -41,10 +41,12 @@ build_info = {"seconds": None, "log": "", "path": None}
 # launches of the library's kernels, counted by each wrapper where it
 # launches its kernel and nowhere else (fused_synth.cu's carry mode, the
 # serving tick, and its host_track mode, the solo long-form route, have
-# counts of their own); callers that must show a path went through the
-# kernels set the counts to 0 before it and read them after
+# counts of their own, as have seq_scan.cu's two entry points); callers that
+# must show a path went through the kernels set the counts to 0 before it
+# and read them after
 LAUNCHES = {"fused_synth": 0, "fused_synth_carry": 0, "fused_synth_track": 0,
-            "phase_q32_pre": 0, "synth_core": 0, "fma_peak": 0}
+            "phase_q32_pre": 0, "synth_core": 0, "fma_peak": 0,
+            "carrier_scan": 0, "jsched_scan": 0}
 
 
 def _nvcc() -> str:
@@ -80,6 +82,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.grail_fma_peak.restype = i
     lib.grail_fma_peak_block.argtypes = []
     lib.grail_fma_peak_block.restype = i
+    lib.grail_carrier_scan.argtypes = [p] * 4 + [i] * 2 + [p]
+    lib.grail_carrier_scan.restype = i
+    lib.grail_jsched_scan.argtypes = ([p] * 2 + [ctypes.c_float] + [p] * 4
+                                      + [i] * 2 + [p])
+    lib.grail_jsched_scan.restype = i
+    lib.grail_seq_scan_threads.argtypes = []
+    lib.grail_seq_scan_threads.restype = i
     lib.grail_cuda_error_string.argtypes = [i]
     lib.grail_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -161,11 +161,81 @@ def _i32_to_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & MASK32
 
 
+# samples per numpy run of the CPU recurrences below: one f32 cumsum per run,
+# cut at the first wrap
+_RUN = 1024
+
+
+def _np_carrier_lane(f: np.ndarray, p: np.float32):
+    """f32_carrier of one lane in numpy: runs of sequential float32 adds
+    (np.cumsum of float32 adds in float32, one element after another), each
+    cut at its first wrap, where the exact `- 1` restarts the next run."""
+    T = len(f)
+    track = np.empty(T, np.float32)
+    buf = np.empty(_RUN + 1, np.float32)
+    t = 0
+    while t < T:
+        w = min(T - t, _RUN)
+        buf[0] = p
+        buf[1:w + 1] = f[t:t + w]
+        cs = np.cumsum(buf[:w + 1], dtype=np.float32)
+        hit = np.flatnonzero(cs[1:] >= 1.0)
+        k = int(hit[0]) + 1 if len(hit) else w       # steps in this run
+        track[t:t + k] = cs[:k]
+        p = cs[k] - np.float32(1.0) if len(hit) else cs[w]
+        t += k
+    return track, np.float32(p)
+
+
+def _np_jitter_lane(p: np.float32, c: int, inc: np.float32, T: int):
+    """jitter_carry of one lane in numpy, in runs as _np_carrier_lane: the
+    post-update phase and cell of each step."""
+    phi = np.empty(T, np.float32)
+    cell = np.empty(T, np.int32)
+    buf = np.empty(_RUN + 1, np.float32)
+    buf[1:] = inc
+    t = 0
+    while t < T:
+        w = min(T - t, _RUN)
+        buf[0] = p
+        cs = np.cumsum(buf[:w + 1], dtype=np.float32)[1:]
+        hit = np.flatnonzero(cs > 1.0)
+        if not len(hit):
+            phi[t:t + w] = cs
+            cell[t:t + w] = c
+            p = cs[-1]
+            t += w
+            continue
+        k = int(hit[0])
+        phi[t:t + k] = cs[:k]
+        cell[t:t + k] = c
+        p = cs[k] - np.float32(1.0)
+        c += 1
+        phi[t + k] = p
+        cell[t + k] = c
+        t += k + 1
+    return phi, cell, np.float32(p), c
+
+
 def f32_carrier(freq: torch.Tensor, p0: torch.Tensor):
     """The reference carrier recurrence over the last axis (src/lib.rs:
     520-525): per sample `phase += f` (f32), `if phase >= 1: phase -= 1`.
     The saw reads the PRE-update phase. Returns (track [..., T], final
-    phase [...])."""
+    phase [...]). On the CPU each lane runs in numpy (_np_carrier_lane, the
+    same float32 adds); elsewhere a float32 loop over samples, vectorized
+    over lanes (torch's CPU cumsum would add in double)."""
+    if freq.device.type == "cpu" and freq.numel():
+        f = freq.to(torch.float32).reshape(-1, freq.shape[-1]).numpy()
+        p = p0.to(torch.float32).reshape(-1).numpy()
+        runs = [_np_carrier_lane(f[i], p[i]) for i in range(len(f))]
+        track = np.stack([r[0] for r in runs]).reshape(freq.shape)
+        pf = np.array([r[1] for r in runs], np.float32).reshape(p0.shape)
+        return torch.from_numpy(track), torch.from_numpy(pf)
+    return _f32_carrier_loop(freq, p0)
+
+
+def _f32_carrier_loop(freq: torch.Tensor, p0: torch.Tensor):
+    """f32_carrier as a float32 loop over samples, on any device."""
     T = freq.shape[-1]
     track = torch.empty_like(freq)
     p = p0.clone()
@@ -275,10 +345,29 @@ def jitter_carry(jphi: torch.Tensor, jcell: torch.Tensor, inc, T: int):
     """T steps of the reference jitter recurrence (src/lib.rs:236-249,
     287-300) from each lane's carried state, jphi f32 [B] and the absolute
     cell jcell int32 [B]: per sample `phase = f32(phase + inc)`, and if
-    phase > 1, `phase -= 1` (exact) and the cell advances. A float32 loop
-    over samples, vectorized over lanes (torch's CPU cumsum would add in
-    double). Returns the post-update (phi f32 [B, T], cell int32 [B, T])
-    and the final (jphi, jcell)."""
+    phase > 1, `phase -= 1` (exact) and the cell advances. On the CPU each
+    lane runs in numpy (_np_jitter_lane, the same float32 adds); elsewhere a
+    float32 loop over samples, vectorized over lanes (torch's CPU cumsum
+    would add in double). Returns the post-update (phi f32 [B, T], cell
+    int32 [B, T]) and the final (jphi, jcell)."""
+    if jphi.device.type == "cpu" and T > 0:
+        inc32 = np.float32(inc)
+        runs = [_np_jitter_lane(np.float32(p), int(c), inc32, int(T))
+                for p, c in zip(jphi.to(torch.float32).numpy(),
+                                jcell.to(torch.int32).numpy())]
+        phi = np.stack([r[0] for r in runs]) if runs else np.empty(
+            (0, T), np.float32)
+        cell = np.stack([r[1] for r in runs]) if runs else np.empty(
+            (0, T), np.int32)
+        return (torch.from_numpy(phi), torch.from_numpy(cell),
+                torch.tensor([r[2] for r in runs], dtype=torch.float32),
+                torch.tensor([r[3] for r in runs], dtype=torch.int32))
+    return _jitter_carry_loop(jphi, jcell, inc, T)
+
+
+def _jitter_carry_loop(jphi: torch.Tensor, jcell: torch.Tensor, inc,
+                       T: int):
+    """jitter_carry as a float32 loop over samples, on any device."""
     inc = float(np.float32(inc))
     p, c = jphi.clone(), jcell.clone()
     B = p.shape[0]

@@ -21,7 +21,7 @@ import numpy as np
 
 from ..core.constants import DEFAULT_SAMPLE_RATE, NUM_FORMANTS
 from ..synth.elem import SynthesisElem
-from ..text.phonemes import NUM_SOUND_PHONEMES, Phoneme, sound_index
+from ..text.phonemes import NUM_SOUND_PHONEMES, Phoneme, is_sound, sound_index
 
 
 @dataclass(frozen=True)
@@ -65,6 +65,14 @@ class Voice:
     jitter_delta_formant_frequency: float
     jitter_delta_amplitude: float
     name: str = ""
+
+    def get(self, phoneme: Phoneme):
+        """VoiceStorage::get (src/lib.rs:664-671): None for a special or an
+        undefined phoneme, else the phoneme's SynthesisElem row."""
+        p = int(phoneme)
+        if not is_sound(p) or not bool(self.defined[sound_index(p)]):
+            return None
+        return self.table[sound_index(p)]
 
     def resampled(self, new_sample_rate: float) -> "Voice":
         """Retarget the voice to a different output sample rate

@@ -281,7 +281,7 @@ def test_tracks_apply_to_one_fused_utterance_only(monkeypatch):
 
     def stub_run(self, impl, carrier, S, T, dev, backend="fused", track=None):
         ran.append((self.B, backend, carrier, track is not None))
-        return []
+        return [None] * self.B
 
     monkeypatch.setattr(papi._Batch, "run", stub_run)
     kw = dict(device="cpu")
@@ -297,9 +297,15 @@ def test_tracks_apply_to_one_fused_utterance_only(monkeypatch):
     with pytest.raises(ValueError, match="carrier tracks"):
         papi.synthesize_scores([c["pscore"]], VOICE,
                                carrier_tracks=[c["track"]] * 2, **kw)
+    # a sample rate other than the voice's runs on xla when no backend is
+    # named, as in grail_tpu, and reads the track there; a fused backend
+    # named raises
+    papi.synthesize_score(c["pscore"], VOICE, sample_rate=22050,
+                          device="cpu", carrier_track=c["track"])
+    assert ran[-1] == (1, "xla", "track", True)
     with pytest.raises(ValueError, match="sample_rate"):
         papi.synthesize_score(c["pscore"], VOICE, sample_rate=22050,
-                              device="cpu")
+                              device="cpu", backend="fused")
 
 
 # ---- routing -----------------------------------------------------------------

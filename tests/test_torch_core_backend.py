@@ -418,7 +418,14 @@ def test_backend_names():
     a = g.synthesize_scores(sc, device="cpu", backend="pallas")[0]
     b = g.synthesize_scores(sc, device="cpu", backend="core")[0]
     assert torch.equal(a, b)
-    for bad in ("xla", "scan", "pallas_interpret", "fused_interpret", None):
+    # grail_tpu's '_interpret' names are other names of the same programs,
+    # and None is the default backend
+    c = g.synthesize_scores(sc, device="cpu", backend="pallas_interpret")[0]
+    assert torch.equal(a, c)
+    assert torch.equal(
+        g.synthesize_scores(sc, device="cpu", backend="fused_interpret")[0],
+        g.synthesize_scores(sc, device="cpu", backend=None)[0])
+    for bad in ("wat", "Fused", 3):
         with pytest.raises(ValueError, match="backend"):
             g.synthesize_scores(sc, device="cpu", backend=bad)
         with pytest.raises(ValueError, match="backend"):
@@ -442,4 +449,6 @@ def test_route_core_backend():
         with pytest.raises(ValueError, match="exact_carrier"):
             g.route(1, 1000, True, "cpu", sr, be)
     with pytest.raises(ValueError, match="backend"):
-        g.route(1, 1000, None, "cpu", sr, "xla")
+        g.route(1, 1000, None, "cpu", sr, "wat")
+    # the other programs' names route too (tests/test_torch_xla_core.py)
+    assert g.route(1, 1000, None, "cpu", sr, "xla")[2:] == (1, 4096)

@@ -1045,3 +1045,169 @@ def test_fma_peak_kernel_against_plain(cuda):
     m = fp.measure(iters=256)
     for variant in fp.VARIANTS:
         assert m[variant]["ms"] > 0 and m[variant]["instructions_per_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# seq_scan.cu: the xla core's and the xla tick's two f32 recurrences
+# ---------------------------------------------------------------------------
+
+def _freq_rows(T, B, seed=0):
+    """A carrier frequency stream [T, B]: voiced pitches, a run of the
+    silent frame's 0.25 and a zero lane, so that every wrap rule shows."""
+    rng = np.random.default_rng(seed)
+    f = (0.002 + 0.01 * rng.random((T, B))).astype(np.float32)
+    f[: min(T, 9)] = np.float32(0.25)
+    if B > 2:
+        f[:, 2] = 0.0
+    return f
+
+
+@pytest.mark.parametrize("T,B", [(441, 512), (4096, 64), (4096, 1), (7, 3)])
+def test_carrier_scan_kernel_equals_plain(cuda, T, B):
+    from grail_tpu_torch.synth import seq_scan as sq
+
+    f = torch.from_numpy(_freq_rows(T, B)).to(cuda)
+    p0 = torch.linspace(0.0, 0.999, B, device=cuda)
+    n0 = dict(kf.LAUNCHES)
+    tk, pk = sq.carrier_scan(p0, f)
+    assert kf.LAUNCHES["carrier_scan"] == n0["carrier_scan"] + 1
+    tp, pp = sq.carrier_scan(p0, f, impl="plain")
+    assert tk.shape == (T, B) and torch.equal(tk, tp) and torch.equal(pk, pp)
+    # the state carries over two calls as over one
+    h = T // 2
+    t1, q1 = sq.carrier_scan(p0, f[:h])
+    t2, q2 = sq.carrier_scan(q1, f[h:])
+    assert torch.equal(torch.cat([t1, t2]), tk) and torch.equal(q2, pk)
+
+
+@pytest.mark.parametrize("T,B", [(441, 512), (4096, 64), (4096, 1), (7, 3)])
+@pytest.mark.parametrize("inc", [0.0002, 0.3])
+def test_jsched_scan_kernel_equals_plain(cuda, T, B, inc):
+    from grail_tpu_torch.synth import seq_scan as sq
+
+    jphi = torch.linspace(0.0, 0.99995, B, device=cuda)
+    jcell = torch.arange(B, dtype=torch.int32, device=cuda) * 7
+    n0 = dict(kf.LAUNCHES)
+    k = sq.jsched_scan(jphi, jcell, inc, T)
+    assert kf.LAUNCHES["jsched_scan"] == n0["jsched_scan"] + 1
+    p = sq.jsched_scan(jphi, jcell, inc, T, impl="plain")
+    assert k[0].shape == k[1].shape == (B, T)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    h = T // 2
+    a = sq.jsched_scan(jphi, jcell, inc, h)
+    b = sq.jsched_scan(a[2], a[3], inc, T - h)
+    assert torch.equal(torch.cat([a[0], b[0]], 1), k[0])
+    assert torch.equal(torch.cat([a[1], b[1]], 1), k[1])
+    assert torch.equal(b[2], k[2]) and torch.equal(b[3], k[3])
+
+
+def test_seq_scan_wrappers_reject_bad_inputs(cuda):
+    from grail_tpu_torch.synth import seq_scan as sq
+
+    f = torch.zeros(8, 4, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        sq.carrier_scan_cuda(torch.zeros(4, device=cuda), f.double())
+    with pytest.raises(ValueError, match="shape"):
+        sq.carrier_scan_cuda(torch.zeros(3, device=cuda), f)
+    with pytest.raises(ValueError, match="CUDA"):
+        sq.carrier_scan_cuda(torch.zeros(4), f.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        sq.jsched_scan_cuda(torch.zeros(4, device=cuda),
+                            torch.zeros(4, device=cuda), 0.1, 8)
+
+
+def test_xla_routes_on_cuda_match_cpu(cuda):
+    # the xla batch with exact_carrier="kernel" launches carrier_scan once a
+    # block and no other kernel; the scan core and the Q32 xla route match
+    # the CPU too
+    from grail_tpu_torch.utils import sample_error_db
+
+    texts = ["ae", "ea", "aeae"]
+    for kw, want in ((dict(exact_carrier="kernel"), {"carrier_scan"}),
+                     (dict(exact_carrier=False), set()),
+                     (dict(backend="scan"), {"carrier_scan"})):
+        kw = dict({"backend": "xla"}, **kw)
+        n0 = dict(kf.LAUNCHES)
+        a = g.synthesize_batch(texts, **kw)
+        torch.cuda.synchronize()
+        moved = {k for k in n0 if kf.LAUNCHES[k] != n0[k]}
+        assert moved == want, (kw, moved)
+        if kw.get("exact_carrier") == "kernel":
+            T = _round_up(max(x.shape[0] for x in a), 4096)
+            assert (kf.LAUNCHES["carrier_scan"] - n0["carrier_scan"]
+                    == T // 4096)
+        b = g.synthesize_batch(texts, device="cpu", **kw)
+        for x, y in zip(a, b):
+            assert x.device.type == "cuda" and x.shape == y.shape
+            assert sample_error_db(x.cpu().numpy(), y.numpy()) < -100
+
+
+@pytest.mark.parametrize("block", [441, 1024])
+def test_xla_pool_kernel_equals_plain(cuda, block):
+    # each xla tick on the card (its two kernels) equals the same tick with
+    # the recurrences' plain versions on the card, from the same state
+    from grail_tpu_torch.runtime import stream as st
+
+    pool = st.StreamPool(4, voice="plain", language="english", block=block,
+                         backend="xla", jitter_horizon_s=0.3)
+    for i in range(3):
+        pool.feed(i, _SERVE_TEXTS[i % len(_SERVE_TEXTS)])
+    pool.flush()
+    n0 = dict(kf.LAUNCHES)
+    ticks = 30 * 1024 // block          # 0.7 s: the 0.3 s windows slide
+    for t in range(ticks):
+        sf0, si0 = pool._sf.clone(), pool._si.clone()
+        a = pool.read_block(sync=False)
+        ins = dict(pool._dev, offsets=pool._dev["offsets"] - block)
+        ref = st._xla_tick("plain", ins, sf0, si0, block)
+        for x, y in zip((a, pool._sf, pool._si), ref):
+            assert torch.equal(x, y), t
+    assert kf.LAUNCHES["carrier_scan"] == n0["carrier_scan"] + ticks
+    assert kf.LAUNCHES["jsched_scan"] == n0["jsched_scan"] + ticks
+    assert kf.LAUNCHES["fused_synth_carry"] == n0["fused_synth_carry"]
+    assert any(s._lat_base > 0 for s in pool.sessions)
+
+
+def test_xla_pool_on_cuda_matches_cpu(cuda):
+    from grail_tpu_torch.runtime.stream import StreamPool
+    from grail_tpu_torch.utils import sample_error_db
+
+    def run(device):
+        pool = StreamPool(3, voice="plain", language="english", block=441,
+                          device=device)
+        pool.feed(0, "hello world")
+        pool.feed(1, "aeio")
+        pool.flush()
+        return np.concatenate([pool.read_block() for _ in range(40)], 1)
+
+    a, b = run("cuda"), run("cpu")
+    for i in (0, 1):
+        assert sample_error_db(a[i], b[i]) < -100
+
+
+@pytest.mark.parametrize("N", [3, 128])
+def test_served_xla_graph_equals_eager_ticks(cuda, N):
+    # serve mode on an xla pool: one graph per published set holding the
+    # xla tick (its two kernels and torch ops), each replay equal to the
+    # twin's eager tick, counted as one launch of each kernel
+    pool, twin = _serve_pools(N, pin_elems=64, block=441)
+    assert pool.backend == "xla"
+    pool.serve_start(period=9999)
+    n0 = dict(kf.LAUNCHES)
+    ticks = 80                  # 0.8 s: the 0.3 s windows slide
+    for t in range(ticks):
+        _late_feeds(t, N, (pool, twin))
+        pool._serve_build()
+        a = pool.serve_tick()
+        b = twin.read_block(sync=False)
+        assert torch.equal(a, b), t
+        assert torch.equal(pool._sf, twin._sf), t
+        assert torch.equal(pool._si, twin._si), t
+    for k in ("carrier_scan", "jsched_scan"):
+        assert kf.LAUNCHES[k] == n0[k] + 2 * ticks
+    assert kf.LAUNCHES["fused_synth_carry"] == n0["fused_synth_carry"]
+    pool.serve_stop()
+    assert any(s._lat_base > 0 for s in pool.sessions)
+    assert torch.equal(pool.read_block(sync=False),
+                       twin.read_block(sync=False))

@@ -422,9 +422,7 @@ def test_pool_session_checkpoint_restore():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(backend="xla"), "later slice"),
     (dict(mesh=object()), "later slice"),
-    (dict(block=1000), "later slice"),
     (dict(output="wat"), "output"),
     (dict(backend="pallas"), "backend"),
 ])
