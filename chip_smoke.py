@@ -131,6 +131,18 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      mode on the xla pool as phase 15 (20 served ticks bit-equal to a
      twin's read_block, replay times, a paced 10 s run at the 10 ms
      period, its deadline misses printed, not gated).
+ 17. dp x sp sharding (grail_tpu_torch/parallel/, no kernel): bench.py's 64
+     texts at T = round_up(max N, 8192) = 360,448, Q32, through
+     sharded_pipeline on four meshes, each a spawn of ranks
+     (parallel/_ranks.chip_case) on cuda:0: (1, 1) over NCCL, held against
+     the port's single-process xla program on the same batch (< -100 dB
+     per utterance); (1, 2) and (1, 4) over gloo, ranks sharing the card
+     (NCCL refuses two ranks on one card), against (1, 1) (< -100 dB,
+     final seeds and phases bit-equal); (2, 1) over gloo, bit-equal to
+     (1, 1). No rank launches a kernel. Per mesh: wall time per call, per
+     rank the sp core's CUDA-event time, each gather's time, the peak of
+     allocated device memory, and the torch ops per call; the shared-card
+     meshes are labelled as such, not as a scaling figure.
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
@@ -270,6 +282,15 @@ XLA_CHECK = tuple(range(20, 30)) + tuple(range(70, 80))   # against plain
 XLA_SERVED_TICKS = 20       # served ticks held against a twin's read_block
 XLA_SERVED_PLAIN = range(10, 20)
 XLA_VS_FUSED_TICKS = 20     # block-1,024 ticks, xla pool against fused pool
+# phase 17, dp x sp sharding (grail_tpu_torch/parallel/): the B = 64 texts
+# at T = round_up(max N, SP_ALIGN), Q32, each mesh in its own spawn of ranks
+# that all use cuda:0 (NCCL refuses two ranks on one card: the one-rank mesh
+# runs over NCCL, the shared ones over gloo)
+SP_ALIGN = 8192
+SP_MESHES = ((1, 1, "nccl"), (1, 2, "gloo"), (1, 4, "gloo"), (2, 1, "gloo"))
+SP_REPS = 3                 # timed calls per rank
+SP_TIMEOUT = 600.0          # seconds per spawn
+SP_DP_DB = -130.0           # (2, 1) against (1, 1), if not bit-equal
 SEQ_SHAPES = ((441, 512), (4096, 64))   # [T, lanes]: the tick, the batch
 SEQ_REPS = 50               # launches between two events, seq_scan's own time
 # seq_scan.cu per lane-sample: the carrier's add, compare, subtract and
@@ -842,6 +863,9 @@ def main():
                     tag="16 xla serve mode", gate=False)
     x512, x128 = (xs["by_n"][n] for n in SERVE_N[::-1])
     seq_tick, seq_blk = (seq[shape] for shape in SEQ_SHAPES)
+
+    # ---- 17: dp x sp sharding (parallel/sharded.py) ----------------------
+    sharding_phase(card, dev, texts, voice)
 
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
@@ -2305,6 +2329,136 @@ def xla_tick_phase(card, dev, drive):
           f"against the fused pool fed alike, {XLA_VS_FUSED_TICKS} ticks: "
           f"worst of {len(dbs)} sounding sessions {max(dbs)} dB", flush=True)
     return out
+
+
+def sharding_phase(card, dev, texts, voice):
+    """Phase 17, dp x sp sharding (grail_tpu_torch/parallel/) at full
+    width: sharded_pipeline of the B = 64 texts, T = round_up(max N,
+    SP_ALIGN), Q32, on each mesh of SP_MESHES, every mesh a spawn of ranks
+    (parallel/_ranks.chip_case) on cuda:0. (1, 1) over NCCL against the
+    port's single-process xla program on the same batch (< TOL_DB per
+    utterance); (1, 2) and (1, 4), ranks sharing the card over gloo,
+    against (1, 1) (< TOL_DB, final seeds and phases bit-equal); (2, 1)
+    against (1, 1), bit-equal (dp has no collective). No rank may launch a
+    kernel. Per mesh: wall ms per call, the sp core's CUDA-event ms and the
+    gathers' ms per rank, peak allocated bytes per rank, torch ops per
+    call; also written to chiprun_out/chip_smoke_sharding.json. The
+    gathers, in order: the carrier's Q32 totals, the lowpass's and the SVF
+    bank's operator totals over 'seq', the [B_local, T_local] output blocks
+    over the mesh; a mesh axis of size 1 gathers nothing."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import grail_tpu_torch as g
+    import grail_tpu_torch.api as papi
+    from grail_tpu_torch.api import _round_up
+    from grail_tpu_torch.parallel import _ranks
+    from grail_tpu_torch.synth.score import stack_scores
+    from grail_tpu_torch.utils import sample_error_db
+
+    b = papi._Batch([g.text_to_score(t) for t in texts], voice, None)
+    T = _round_up(max(b.Ns), SP_ALIGN)
+    lattices, jparams = b.jitter(T)
+    work = os.path.join(ROOT, "build", "chip_smoke_sharding")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.save((stack_scores(b.scores), lattices, jparams, b.sr, T),
+               os.path.join(work, "batch.pt"))
+
+    # the reference: the port's single-process xla program, same batch
+    setup = papi._core_unsplit_setup(b.core_lanes(T, dev), T, b.sr,
+                                     jparams[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = papi._xla_run(setup, "q32")
+    torch.cuda.synchronize()
+    xla_ms = (time.perf_counter() - t0) * 1e3
+    ref = ref.cpu().numpy()
+    del setup
+    torch.cuda.empty_cache()      # the ranks need the card's memory
+
+    def worst_db(a, r):
+        return max(sample_error_db(a[k], r[k]) for k in range(len(r)))
+
+    runs, summary = {}, {"B": B, "T": T, "card": card,
+                         "xla_program_ms": xla_ms, "meshes": {}}
+    for nd, ns, backend in SP_MESHES:
+        world, tag = nd * ns, f"{nd}x{ns}"
+        t0 = time.perf_counter()
+        _ranks.spawn(_ranks.chip_case, world,
+                     (world, nd, ns, work, backend, SP_REPS), SP_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        rs = _ranks.load_results(work, f"card_{tag}", world)
+        out = rs[0]["out"]
+        if tuple(out.shape) != (B, T) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"[17 sharding] {tag}: output "
+                                 f"{tuple(out.shape)}, expected ({B}, {T}) "
+                                 "finite")
+        launched = {k: n for r in rs for k, n in r["launches"].items() if n}
+        if launched:
+            raise AssertionError(f"[17 sharding] {tag} launched {launched}; "
+                                 "the sp path launches no kernel")
+        by = {r["coord"]: r["state"] for r in rs}
+        for (d, i), st in by.items():
+            if not all(torch.equal(x, y) for x, y in zip(st, by[(d, 0)])):
+                raise AssertionError(f"[17 sharding] {tag}: rank {(d, i)}'s "
+                                     "final state differs from its row's")
+        state = [torch.cat([by[(d, 0)][k] for d in range(nd)])
+                 for k in range(5)]
+        out = out.numpy()
+        runs[(nd, ns)] = (out, state)
+        one_out, one_state = runs[(1, 1)]
+        if (nd, ns) == (1, 1):
+            check = f"against the xla program {worst_db(out, ref)} dB worst"
+            if worst_db(out, ref) >= TOL_DB:
+                raise AssertionError(f"[17 sharding] {tag}: {check}")
+        else:
+            db = worst_db(out, one_out)
+            same = {name: bool(torch.equal(state[k], one_state[k]))
+                    for k, name in enumerate(("phase", "filter_a",
+                                              "filter_b", "filter_c",
+                                              "seed"))}
+            check = (f"against (1, 1): worst {db} dB, bit-equal audio "
+                     f"{bool(np.array_equal(out, one_out))}, final state "
+                     f"bit-equal {same}")
+            if nd == 1 and not (db < TOL_DB and same["seed"]
+                                and same["phase"]):
+                raise AssertionError(f"[17 sharding] {tag}: {check}")
+            if ns == 1 and not np.array_equal(out, one_out):
+                diff = float(np.abs(out - one_out).max())
+                if db >= SP_DP_DB:
+                    raise AssertionError(f"[17 sharding] {tag}: {check}, "
+                                         f"max-abs {diff}")
+                check += f", max-abs {diff} (held at {SP_DP_DB} dB)"
+        ranks = [{"coord": r["coord"], "backend": r["backend"],
+                  "wall_ms": statistics.median(r["wall_ms"]),
+                  "sp_core_ms": statistics.median(r["core_ms"]),
+                  "gather_ms": r["gather_ms"],
+                  "peak_bytes": r["peak_bytes"]} for r in rs]
+        summary["meshes"][tag] = dict(
+            backend=backend, ranks=ranks, ops_per_call=rs[0]["ops"],
+            wall_ms=max(x["wall_ms"] for x in ranks), spawn_s=spawn_s,
+            check=check)
+        label = ("one rank on the card" if world == 1 else
+                 f"{world} ranks sharing one card, not a scaling figure")
+        print(f"[17 sharding] mesh {tag} over {backend} ({label}): "
+              f"sharded_pipeline({B} texts, T={T}) {check}; no kernel "
+              f"launched; wall ms per call (median of {SP_REPS}, slowest "
+              f"rank) {summary['meshes'][tag]['wall_ms']}; per rank "
+              f"{json.dumps(ranks)}; torch ops per call (rank 0) "
+              f"{rs[0]['ops']}; spawn {spawn_s:.1f} s; card {card}",
+              flush=True)
+    print(f"[17 sharding] the single-process xla program on the same batch "
+          f"({T // 4096} blocks): {xla_ms} ms (host clock, one run); card "
+          f"{card}", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_sharding.json"),
+              "w") as f:
+        json.dump(summary, f, indent=1)
+    shutil.rmtree(work, ignore_errors=True)
+    return summary
 
 
 def scaling(texts, batch, T, card, zero_state, dev):

@@ -10,7 +10,10 @@ tick, or grail_tpu's xla tick (any block size). grail_tpu's other cores,
 'core', 'xla' and 'scan', are backends of the same API; the sequential f32
 recurrences of the last two run in synth/csrc/seq_scan.cu. The command line (cli.py) and the REPL (interactive.py) run on the
 card by default; a long solo utterance reads its carrier phase from the
-native host pre-pass (oracle/native.py, runtime/native.py).
+native host pre-pass (oracle/native.py, runtime/native.py). dp x sp
+sharding over torch.distributed is the subpackage `parallel` (make_mesh,
+synthesize_block_sp, sharded_pipeline), imported on its own: importing
+the package does not load it, as torch.distributed is slow to load.
 
 Numerics: every per-sample parameter lookup is an index gather (the JAX
 package's one-hot matmuls existed only because TPU gathers are slow), so no

@@ -7,7 +7,9 @@ The reference's chain (examples/cli.rs:175-184)
 
 runs as a host frontend (text -> timed phoneme elements -> a numpy Score
 per utterance) followed by one synthesizer program over the padded batch:
-the CUDA kernels on a GPU, their plain PyTorch versions on the CPU. Four
+the CUDA kernels on a GPU, their plain PyTorch versions on the CPU. Each
+entry point takes grail_tpu's parameters in grail_tpu's order and adds
+`device` last, so a positional call means what it means there. Four
 backends, under grail_tpu's names (`_BACKENDS`; its '_interpret' names are
 other names of the same programs, so that calls written for grail_tpu run
 unchanged):
@@ -848,9 +850,9 @@ def _synthesize_split(scores: Sequence[Score], voice="generic",
 
 def synthesize_scores(scores: Sequence[Score], voice="generic",
                       seeds: Optional[Sequence[int]] = None,
-                      exact_carrier=None, device="cuda",
                       backend: Optional[str] = None,
-                      carrier_tracks: Optional[Sequence] = None
+                      carrier_tracks: Optional[Sequence] = None,
+                      exact_carrier=None, device="cuda"
                       ) -> List[torch.Tensor]:
     """Synthesize prepared per-utterance Scores in one synthesizer program.
 
@@ -880,9 +882,10 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
                      seeds: Optional[Sequence[int]] = None,
                      contour: bool = False, speaking_rate: float = 1.0,
                      sample_rate: Optional[float] = None,
-                     exact_carrier=None, device="cuda",
+                     use_scan: bool = False,
                      backend: Optional[str] = None,
-                     use_scan: bool = False) -> List[torch.Tensor]:
+                     exact_carrier=None, device="cuda"
+                     ) -> List[torch.Tensor]:
     """Batched synthesis: texts -> one float32 waveform tensor per text, on
     `device` ('cuda' runs the kernels; 'cpu' their plain PyTorch versions).
 
@@ -1015,9 +1018,9 @@ def synthesize_score(score: Score, voice, seed: int = 0,
 
 def synthesize(text: str, voice="generic", language="generic", seed: int = 0,
                contour: bool = False, speaking_rate: float = 1.0,
-               sample_rate: Optional[float] = None, exact_carrier=None,
-               device="cuda", backend: Optional[str] = None,
-               use_scan: bool = False) -> torch.Tensor:
+               sample_rate: Optional[float] = None, use_scan: bool = False,
+               backend: Optional[str] = None, exact_carrier=None,
+               device="cuda") -> torch.Tensor:
     """Text -> float32 waveform tensor (the reference CLI chain, one
     utterance): synthesize_batch of one text, which runs the host frontend,
     the carrier pre-pass where `exact_carrier` asks for it, and the solo

@@ -3,7 +3,8 @@ its native twin with the carrier pre-pass (native.py)."""
 
 from .native import (
     carrier_phase_track_reference, gold_dsp_chain,
-    native_carrier_phase_track, native_oracle_dsp_chain,
+    native_carrier_phase_track, native_oracle_available,
+    native_oracle_dsp_chain,
 )
 from .reference import (
     NpElem, NpSequenceElem, NpVoice,
@@ -14,7 +15,8 @@ from .reference import (
 __all__ = [
     "NpElem", "NpSequenceElem", "NpVoice",
     "carrier_phase_track_reference", "gold_dsp_chain",
-    "native_carrier_phase_track", "native_oracle_dsp_chain",
+    "native_carrier_phase_track", "native_oracle_available",
+    "native_oracle_dsp_chain",
     "oracle_dsp_chain", "oracle_intonate", "oracle_jitter",
     "oracle_pipeline", "oracle_select", "oracle_sequence",
     "oracle_synthesize",

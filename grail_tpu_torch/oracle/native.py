@@ -99,6 +99,17 @@ def _marshal_and_run(fn, pelems: Sequence, spec: VoiceSpec,
     raise RuntimeError("native oracle output capacity retry exhausted")
 
 
+def native_oracle_available() -> bool:
+    """Whether the host library builds and loads here (runtime/native.py
+    builds it at first use). The one place that catches the build's error:
+    it reports, and no caller falls back on its answer."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def native_oracle_dsp_chain(pelems: Sequence, spec: VoiceSpec,
                             jitter_seed: int = 0) -> np.ndarray:
     """Native twin of oracle_dsp_chain: timed PhonemeElems -> f32 samples,
@@ -148,5 +159,6 @@ def gold_dsp_chain(pelems: Sequence, spec: VoiceSpec,
     return native_oracle_dsp_chain(pelems, spec, jitter_seed=jitter_seed)
 
 
-__all__ = ["native_oracle_dsp_chain", "native_carrier_phase_track",
+__all__ = ["native_oracle_available", "native_oracle_dsp_chain",
+           "native_carrier_phase_track",
            "carrier_phase_track_reference", "gold_dsp_chain"]

@@ -50,6 +50,15 @@ class Score(NamedTuple):
     def num_elems(self):
         return self.length.shape[-1]
 
+    def total_seconds(self):
+        """Seconds of each utterance: the float32 sum of `length` over the
+        last axis (padding elements count 0), a tensor for a Score on a
+        device (Score.to), else a numpy value."""
+        if isinstance(self.length, torch.Tensor):
+            return self.length.to(torch.float32).sum(-1)
+        return np.sum(np.asarray(self.length, np.float32), axis=-1,
+                      dtype=np.float32)
+
     def to(self, device) -> "Score":
         """Every leaf as a tensor on `device`: has_sound bool, the rest
         float32 (the sequencer's input, synth/sequencer.py)."""
