@@ -110,7 +110,10 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      23.22 ms block period with the frontend on its own period and a feed
      every 7 periods (the cadence of grail_tpu's benchmarks/latency.py):
      the frontend cycles, the captures (all on the frontend thread) and
-     the deadline misses at sink depth 2, which must be 0.
+     the deadline misses at sink depth 2, which must be 0; at N = 512 two
+     more paced runs with a feed every period, the frontend on the host
+     library and then on its Python and numpy twins, their misses
+     printed, not gated.
  16. the xla and scan cores and the xla tick (seq_scan.cu, the two f32
      recurrences: carrier_scan and jsched_scan): both entry points
      bit-equal to their plain versions at [441, 512], [4096, 64] and one
@@ -143,6 +146,20 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      rank the sp core's CUDA-event time, each gather's time, the peak of
      allocated device memory, and the torch ops per call; the shared-card
      meshes are labelled as such, not as a scaling figure.
+ 18. the native host tier (runtime/native.py: the host library built from
+     native/*.cpp with this machine's g++, no kernel): at full width, the
+     native transcriber on the 64 texts (generic) and the 86.5 s long_en
+     text (english) equal to the Python automaton, the drift boundaries of
+     their element lengths (counts and residual bits) equal to the numpy
+     twin, and the jitter schedule window of the long-form route
+     (3,814,268 samples, PhaseSchedule.window) bit-equal to the numpy
+     twin. Times on the host clock, median of 5, native and numpy in turns
+     in one process: each binding beside its twin on those inputs; the
+     B = 64 host frontend by stage (transcription, intonation, drift
+     boundaries, the score build, stacking and padding) and whole, with
+     the host library and with the twins; StreamPool's first tick at N =
+     128 and 512 (serving cell) with each. The numbers also go to
+     chiprun_out/chip_smoke_native.json.
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
@@ -173,6 +190,7 @@ score_from_phoneme_elems; it also writes them to
 chiprun_out/chip_smoke_scaling.json.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -259,6 +277,8 @@ SERVE_CHECK = range(20, 30)  # main-path ticks held against the plain version
 SLIDE_HORIZON_S = 0.3       # main path: lattice windows of 16 cells, so
 #                             every session's window slides by tick ~29
 PROFILE_TICKS = 20          # steady-state ticks under torch.profiler
+PROFILE_ATTEMPTS = 3        # windows, if a trace misses counted launches
+PROFILE_SETTLE_S = 0.1      # pause before the active window
 PIPE_TICKS = 50             # tick_pipelined periods timed
 READ_AHEAD = 8              # read_blocks(k)
 # serve mode (phase 15): the serving cell at full width, N = 512 then 128,
@@ -851,7 +871,7 @@ def main():
     lf = long_form(card, dev, drive, check)
 
     # ---- 15: serve mode (the served tick as a CUDA graph) ----------------
-    served = serve_mode(card, dev, drive, serve)
+    served = serve_mode(card, dev, drive, serve, dense=(SERVE_N[-1],))
     v512, v128 = (served["by_n"][n] for n in SERVE_N[::-1])
 
     # ---- 16: seq_scan.cu, the xla and scan cores, the xla tick ----------
@@ -866,6 +886,9 @@ def main():
 
     # ---- 17: dp x sp sharding (parallel/sharded.py) ----------------------
     sharding_phase(card, dev, texts, voice)
+
+    # ---- 18: the native host tier (runtime/native.py) ---------------------
+    native_tier_phase(card, texts)
 
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
@@ -978,6 +1001,7 @@ def main():
          "served_capture_ms": v512["capture_p50_ms"],
          "served_build_fed_ms": v512["build_fed_ms"],
          "served_misses_depth2": v512["misses_depth2"],
+         "served_feed_every_period_misses": v512["dense_misses"],
          "n128_served_replay_ms": v128["replay_ms"],
          "n128_served_host_p50_ms": v128["host_p50_ms"],
          "n128_served_host_p99_ms": v128["host_p99_ms"],
@@ -1438,9 +1462,13 @@ def profiled_ticks(label, tick, kernels=CARRY_KERNELS):
     launch count read it, the device time by name, the first kernel's
     device time per launch and the device idle share (the window's wall
     time less its device time). A warm-up step of the profiler (3 ticks,
-    not recorded) comes first: without it traces of 20 ticks missed from 1
-    to 8 of the window's first kernels. Fails unless every kernel was seen
-    and counted PROFILE_TICKS times and no copy went host->device."""
+    not recorded) comes first, and the active window starts after the
+    card has drained and a short pause: without them traces of 20 ticks
+    missed from 1 to 13 of the window's first kernels. A window whose
+    trace misses launches that the counts read is measured again, up to
+    PROFILE_ATTEMPTS windows in all, each printed. Fails unless every
+    kernel was seen and counted PROFILE_TICKS times in one window and no
+    copy went host->device."""
     import torch
 
     from grail_tpu_torch.synth import kernel_fused as kf
@@ -1448,25 +1476,35 @@ def profiled_ticks(label, tick, kernels=CARRY_KERNELS):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1)
-    with torch.profiler.profile(activities=acts, schedule=sched,
-                                acc_events=True) as prof:
-        for _ in range(3):
-            tick()
-        torch.cuda.synchronize()
-        prof.step()
-        l0 = dict(kf.LAUNCHES)
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_TICKS):
-            tick()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-        launched = {n: kf.LAUNCHES[k] - l0[k] for n, k in kernels.items()}
-        prof.step()
-    avgs = prof.key_averages()
-    ev = {e.key: e.count for e in avgs}
-    h2d = sum(c for k, c in ev.items() if "HtoD" in k)
-    d2h = sum(c for k, c in ev.items() if "DtoH" in k)
-    seen = {n: sum(c for k, c in ev.items() if n in k) for n in kernels}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.profiler.profile(activities=acts, schedule=sched,
+                                    acc_events=True) as prof:
+            for _ in range(3):
+                tick()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(PROFILE_SETTLE_S)
+            l0 = dict(kf.LAUNCHES)
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_TICKS):
+                tick()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+            launched = {n: kf.LAUNCHES[k] - l0[k]
+                        for n, k in kernels.items()}
+            prof.step()
+        avgs = prof.key_averages()
+        ev = {e.key: e.count for e in avgs}
+        h2d = sum(c for k, c in ev.items() if "HtoD" in k)
+        d2h = sum(c for k, c in ev.items() if "DtoH" in k)
+        seen = {n: sum(c for k, c in ev.items() if n in k) for n in kernels}
+        if h2d or any(v != PROFILE_TICKS for v in launched.values()):
+            break           # a fault of the program, not of the trace
+        if all(v == PROFILE_TICKS for v in seen.values()):
+            break
+        print(f"{label}: profiler window {attempt} of {PROFILE_ATTEMPTS} "
+              f"saw launches {seen} where the counts read {launched}; "
+              f"measured again", flush=True)
     if (any(v != PROFILE_TICKS for v in seen.values())
             or any(v != PROFILE_TICKS for v in launched.values()) or h2d):
         raise AssertionError(
@@ -1675,7 +1713,7 @@ def serving(card, dev, drive):
 
 def serve_mode(card, dev, drive, phase11, blk=SERVE_BLOCK, backend=None,
                ticks=SERVED_TICKS, plain_ticks=SERVED_PLAIN,
-               tag="15 serve mode", gate=True):
+               tag="15 serve mode", gate=True, dense=()):
     """Phase 15 (and phase 16's xla tick with blk, backend, ticks,
     plain_ticks and tag of its own; its deadline misses printed, not gated,
     when gate is False): serve mode at the serving cell's full width, N =
@@ -1694,7 +1732,10 @@ def serve_mode(card, dev, drive, phase11, blk=SERVE_BLOCK, backend=None,
     and a feeder thread feeding a session every FEED_EVERY block periods
     (grail_tpu's cadence): the frontend cycles, the capture
     times on the frontend thread and the deadline misses at sink depth
-    SINK_DEPTH, which must be 0. Returns the numbers."""
+    SINK_DEPTH, which must be 0; at each N in `dense`, two more paced runs
+    with a feed every block period, with the host library and with its
+    Python and numpy twins (_twins), their misses printed, not gated.
+    Returns the numbers."""
     import gc
     import queue
     import random
@@ -1842,112 +1883,131 @@ def serve_mode(card, dev, drive, phase11, blk=SERVE_BLOCK, backend=None,
         # every block period and a sink thread fetches each tick in order.
         # The garbage collector is off for the run, as in a real-time audio
         # loop (grail_tpu's benchmarks/latency.py does the same).
-        pool.serve_start()
-        captures, capture = [], pool._serve_capture
+        def paced(every, suffix=""):
+            """One paced run with a feed every `every` block periods:
+            (deadline misses by sink depth, capture times, ticks)."""
+            pool.serve_start()
+            captures, capture = [], pool._serve_capture
 
-        def timed_capture(swap):
-            t0 = time.perf_counter()
-            capture(swap)
-            captures.append((threading.current_thread().name,
-                             (time.perf_counter() - t0) * 1e3))
+            def timed_capture(swap):
+                t0 = time.perf_counter()
+                capture(swap)
+                captures.append((threading.current_thread().name,
+                                 (time.perf_counter() - t0) * 1e3))
 
-        pool._serve_capture = timed_capture
-        builds, build = [], pool._serve_build
+            pool._serve_capture = timed_capture
+            builds, build = [], pool._serve_build
 
-        def timed_build():
-            t0 = time.perf_counter()
-            published = build()
-            builds.append((time.perf_counter() - t0) * 1e3)
-            return published
+            def timed_build():
+                t0 = time.perf_counter()
+                published = build()
+                builds.append((time.perf_counter() - t0) * 1e3)
+                return published
 
-        pool._serve_build = timed_build
-        K = int(PACED_S / period)
-        avail, dispatch, call = [None] * K, [None] * K, [None] * K
-        fetched, errors = queue.Queue(), []
-        rng = random.Random(0)
-        t_start = None                  # set once the collector has run
+            pool._serve_build = timed_build
+            K = int(PACED_S / period)
+            avail, dispatch, call = [None] * K, [None] * K, [None] * K
+            fetched, errors = queue.Queue(), []
+            rng = random.Random(0)
+            t_start = None                  # set once the collector has run
 
-        def sink():
-            while True:
-                item = fetched.get()
-                if item is None:
-                    return
-                kk, a = item
-                h = a.cpu()
-                avail[kk] = time.perf_counter()
-                if not bool(torch.isfinite(h).all()):
-                    errors.append(f"tick {kk} not finite")
+            def sink():
+                while True:
+                    item = fetched.get()
+                    if item is None:
+                        return
+                    kk, a = item
+                    h = a.cpu()
+                    avail[kk] = time.perf_counter()
+                    if not bool(torch.isfinite(h).all()):
+                        errors.append(f"tick {kk} not finite")
 
-        every = max(FEED_EVERY, -(-12.0 // (n * period)))
+            def feeder():
+                try:
+                    for kk in range(0, K, int(every)):
+                        dt = (t_start + (kk + 0.5) * period
+                              - time.perf_counter())
+                        if dt > 0:
+                            time.sleep(dt)
+                        i = rng.randrange(n)
+                        pool.feed(i, texts[rng.randrange(n)] + " ")
+                        pool.flush(i)
+                except Exception as e:      # reported below
+                    errors.append(repr(e))
 
-        def feeder():
+            threads = [threading.Thread(target=sink),
+                       threading.Thread(target=feeder)]
+            gc.collect()
+            gc.disable()
             try:
-                for kk in range(0, K, int(every)):
-                    dt = t_start + (kk + 0.5) * period - time.perf_counter()
+                t_start = time.perf_counter() + 2 * period
+                for th in threads:
+                    th.start()
+                for kk in range(K):
+                    target = t_start + kk * period
+                    dt = target - time.perf_counter()
                     if dt > 0:
                         time.sleep(dt)
-                    i = rng.randrange(n)
-                    pool.feed(i, texts[rng.randrange(n)] + " ")
-                    pool.flush(i)
-            except Exception as e:      # reported below
-                errors.append(repr(e))
+                    t0 = time.perf_counter()
+                    dispatch[kk] = t0 - target
+                    a = pool.serve_tick()
+                    call[kk] = time.perf_counter() - t0
+                    fetched.put((kk, a))
+            finally:
+                fetched.put(None)
+                for th in threads:
+                    th.join(timeout=60)
+                gc.enable()
+            frontend_error = pool._serve_error
+            pool.serve_stop()
+            pool._serve_capture, pool._serve_build = capture, build
+            if errors or frontend_error is not None or any(
+                    a is None for a in avail):
+                raise AssertionError(f"{label} paced run{suffix}: {errors}, "
+                                     f"frontend {frontend_error!r}")
+            misses = {d: sum(avail[kk] > t_start + (kk + d) * period
+                             for kk in range(K)) for d in (1, 2, 3)}
+            names = {name for name, _ in captures}
+            cap_ms = [ms for _, ms in captures]
+            if names - {"StreamPool-frontend"}:
+                raise AssertionError(f"{label}: captures on threads {names}")
+            late, calls = sorted(dispatch), sorted(call)
+            fetch = sorted(avail[kk] - t_start - kk * period
+                           for kk in range(K))
+            print(f"{label} paced run{suffix}: {K} ticks at the "
+                  f"{period * 1e3} ms block period ({PACED_S} s), a feed "
+                  f"every {int(every)} periods, the frontend on its own "
+                  f"period: deadline misses at sink depth "
+                  f"1/2/3 {misses[1]}/{misses[2]}/{misses[3]}; dispatch late "
+                  f"p50 {late[K // 2] * 1e3} ms, max {late[-1] * 1e3} ms; "
+                  f"serve_tick p50 {calls[K // 2] * 1e3} ms, p99 "
+                  f"{calls[int(K * 0.99)] * 1e3} ms, max "
+                  f"{calls[-1] * 1e3} ms; "
+                  f"audio on the host after its dispatch time p50 "
+                  f"{fetch[K // 2] * 1e3} ms, max {fetch[-1] * 1e3} ms; "
+                  f"{len(builds)} frontend cycles, p50 "
+                  f"{statistics.median(builds)} ms, max {max(builds)} ms, "
+                  f"{sum(b > 2 * period * 1e3 for b in builds)} longer "
+                  f"than two block periods; "
+                  f"{len(cap_ms)} captures on the frontend thread, p50 "
+                  f"{statistics.median(cap_ms) if cap_ms else None} ms, max "
+                  f"{max(cap_ms) if cap_ms else None} ms", flush=True)
+            return misses, cap_ms, K
 
-        threads = [threading.Thread(target=sink),
-                   threading.Thread(target=feeder)]
-        gc.collect()
-        gc.disable()
-        try:
-            t_start = time.perf_counter() + 2 * period
-            for th in threads:
-                th.start()
-            for kk in range(K):
-                target = t_start + kk * period
-                dt = target - time.perf_counter()
-                if dt > 0:
-                    time.sleep(dt)
-                t0 = time.perf_counter()
-                dispatch[kk] = t0 - target
-                a = pool.serve_tick()
-                call[kk] = time.perf_counter() - t0
-                fetched.put((kk, a))
-        finally:
-            fetched.put(None)
-            for th in threads:
-                th.join(timeout=60)
-            gc.enable()
-        frontend_error = pool._serve_error
-        pool.serve_stop()
-        if errors or frontend_error is not None or any(
-                a is None for a in avail):
-            raise AssertionError(f"{label} paced run: {errors}, frontend "
-                                 f"{frontend_error!r}")
-        misses = {d: sum(avail[kk] > t_start + (kk + d) * period
-                         for kk in range(K)) for d in (1, 2, 3)}
-        names = {name for name, _ in captures}
-        cap_ms = [ms for _, ms in captures]
-        if names - {"StreamPool-frontend"}:
-            raise AssertionError(f"{label}: captures on threads {names}")
-        late, calls = sorted(dispatch), sorted(call)
-        fetch = sorted(avail[kk] - t_start - kk * period for kk in range(K))
-        print(f"{label} paced run: {K} ticks at the {period * 1e3} ms block "
-              f"period ({PACED_S} s), a feed every {int(every)} periods, the "
-              f"frontend on its own period: deadline misses at sink depth "
-              f"1/2/3 {misses[1]}/{misses[2]}/{misses[3]}; dispatch late "
-              f"p50 {late[K // 2] * 1e3} ms, max {late[-1] * 1e3} ms; "
-              f"serve_tick p50 {calls[K // 2] * 1e3} ms, p99 "
-              f"{calls[int(K * 0.99)] * 1e3} ms, max {calls[-1] * 1e3} ms; "
-              f"audio on the host after its dispatch time p50 "
-              f"{fetch[K // 2] * 1e3} ms, max {fetch[-1] * 1e3} ms; "
-              f"{len(builds)} frontend cycles, p50 "
-              f"{statistics.median(builds)} ms, max {max(builds)} ms, "
-              f"{sum(b > 2 * period * 1e3 for b in builds)} longer than two "
-              f"block periods; "
-              f"{len(cap_ms)} captures on the frontend thread, p50 "
-              f"{statistics.median(cap_ms) if cap_ms else None} ms, max "
-              f"{max(cap_ms) if cap_ms else None} ms", flush=True)
+        every = int(max(FEED_EVERY, -(-12.0 // (n * period))))
+        misses, cap_ms, K = paced(every)
         if misses[SINK_DEPTH] and gate:
             raise AssertionError(f"{label}: {misses[SINK_DEPTH]} deadline "
                                  f"misses at sink depth {SINK_DEPTH}")
+        dense_misses = {}
+        if n in dense:
+            # a feed every block period, with the host library and with the
+            # Python and numpy twins in its place: printed, not gated
+            dense_misses["native"] = paced(1, " with a feed every period")[0]
+            with _twins():
+                dense_misses["twins"] = paced(
+                    1, " with a feed every period, the frontend on the "
+                    "Python and numpy twins")[0]
         row = dict(launches=counts[next(iter(kernels.values()))],
                    max_abs=max_abs, misses=misses,
                    serve_start_ms=start_ms, host_p50_ms=p50,
@@ -1960,6 +2020,7 @@ def serve_mode(card, dev, drive, phase11, blk=SERVE_BLOCK, backend=None,
                    capture_max_ms=max(cap_ms) if cap_ms else None,
                    captures=len(cap_ms), paced_ticks=K,
                    misses_depth2=misses[SINK_DEPTH],
+                   dense_misses=dense_misses,
                    profiler=dict(h2d=h2d, d2h=d2h, kernels=kern,
                                  window_ms=window_ms))
         out["by_n"][n] = row
@@ -2459,6 +2520,223 @@ def sharding_phase(card, dev, texts, voice):
         json.dump(summary, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)
     return summary
+
+
+@contextlib.contextmanager
+def _twins():
+    """The port's host frontend with the Python and numpy versions of the
+    three native loops (transcription, drift boundaries, jitter schedule)
+    in place of the host library: the baseline phase 18 times it against."""
+    from grail_tpu_torch.runtime import native as rn
+    from grail_tpu_torch.synth import schedule as sch
+    from grail_tpu_torch.synth import score as sc
+    from grail_tpu_torch.text.transcribe import transcribe_chars
+
+    saved = (rn.native_transcribe, sc.native_drift_boundaries,
+             sch.native_jitter_schedule)
+    rn.native_transcribe = lambda text, language: list(
+        transcribe_chars(text, language))
+    sc.native_drift_boundaries = sc._reference_boundary_samples_np
+    sch.native_jitter_schedule = sch._np_simulate
+    try:
+        yield
+    finally:
+        (rn.native_transcribe, sc.native_drift_boundaries,
+         sch.native_jitter_schedule) = saved
+
+
+def turns(fn_native, fn_twin, reps=REPS):
+    """(native ms, twin ms): host-clock medians of `reps` runs of each,
+    taken in turns after one warm-up run of each; fn_twin runs inside
+    _twins()."""
+    tn, tp = [], []
+    for k in range(reps + 1):
+        for fn, ctx, out in ((fn_native, contextlib.nullcontext, tn),
+                             (fn_twin, _twins, tp)):
+            with ctx():
+                t0 = time.perf_counter()
+                fn()
+                ms = (time.perf_counter() - t0) * 1e3
+            if k:
+                out.append(ms)
+    return statistics.median(tn), statistics.median(tp)
+
+
+def native_tier_phase(card, texts):
+    """Phase 18: the native host tier. Checks, at full width: the native
+    transcriber against the Python automaton, the native drift boundaries
+    against the numpy twin (counts and residual bits), the long-form
+    route's jitter schedule window against the numpy twin (bits). Then the
+    times (see the module docstring). Returns the numbers."""
+    import numpy as np
+    import torch
+
+    import grail_tpu_torch as g
+    import grail_tpu_torch.api as papi
+    from grail_tpu_torch.languages import get_language
+    from grail_tpu_torch.runtime import native as rn
+    from grail_tpu_torch.runtime import stream as st
+    from grail_tpu_torch.synth import schedule as sch
+    from grail_tpu_torch.synth import score as sc
+    from grail_tpu_torch.text.intonate import intonate
+    from grail_tpu_torch.text.transcribe import transcribe, transcribe_chars
+
+    tag = "[18 native host tier]"
+    t0 = time.perf_counter()
+    rn.load_library()
+    load_s = time.perf_counter() - t0
+    voice, lvoice = g.get_voice("generic"), g.get_voice(LONG_VOICE)
+    gen, en = get_language("generic"), get_language(LONG_LANGUAGE)
+    items = [(t, gen, voice) for t in texts] + [(LONG_EN, en, lvoice)]
+
+    # ---- checks --------------------------------------------------------
+    n_ph = 0
+    for t, lang, _ in items:
+        got = [int(p) for p in rn.native_transcribe(t, lang)]
+        if got != [int(p) for p in transcribe_chars(t, lang)]:
+            raise AssertionError(f"{tag} transcription of {t[:20]!r} "
+                                 f"differs from the Python automaton")
+        n_ph += len(got)
+    lengths = [(np.float32([pe.length for pe in sc.merge_glides(
+        g.text_to_phoneme_elems(t, v, lang))]), float(v.sample_rate))
+        for t, lang, v in items]
+    n_el = 0
+    for L, sr in lengths:
+        (a_c, a_r), (b_c, b_r) = (rn.native_drift_boundaries(L, sr),
+                                  sc._reference_boundary_samples_np(L, sr))
+        if not (np.array_equal(a_c, b_c) and np.array_equal(
+                a_r.view(np.uint32), np.asarray(b_r).view(np.uint32))):
+            raise AssertionError(f"{tag} drift boundaries differ from the "
+                                 f"numpy twin")
+        n_el += len(L)
+    drift_samples = int(sum(sc._reference_boundary_samples_np(L, sr)[0][-1]
+                            for L, sr in lengths))
+    N_long = papi._score_num_samples(
+        g.text_to_score(LONG_EN, lvoice, LONG_LANGUAGE),
+        float(lvoice.sample_rate))
+    inc = np.float32(lvoice.jitter_frequency)
+    phi, cell = sch.PhaseSchedule(inc).window(0, N_long)
+    phi_p, cell_p = np.empty(N_long, np.float32), np.empty(N_long, np.int32)
+    wraps = sch._np_simulate(inc, np.float32(0.0), N_long, phi_p, cell_p)
+    if not (np.array_equal(phi.view(np.uint32), phi_p.view(np.uint32))
+            and np.array_equal(cell, cell_p)):
+        raise AssertionError(f"{tag} the jitter schedule window differs "
+                             f"from the numpy twin")
+    print(f"{tag} host library {os.path.relpath(rn.build_info['path'], ROOT)}"
+          f" (built in {rn.build_info['seconds']} s when first loaded in "
+          f"this process; {load_s} s here); transcription of {len(texts)} "
+          f"texts and long_en ({n_ph} phonemes) equal to the Python "
+          f"automaton; drift boundaries of their {n_el} elements "
+          f"({drift_samples} samples) equal to the numpy twin, counts and "
+          f"residual bits; the long-form jitter schedule window "
+          f"({N_long} samples, {wraps} wraps) bit-equal to the numpy twin",
+          flush=True)
+
+    # ---- each binding beside its twin -------------------------------------
+    out = {"card": card, "samples_long": N_long, "phonemes": n_ph,
+           "elements": n_el, "drift_samples": drift_samples}
+    def transcribe_all():
+        return [transcribe(t, lang) for t, lang, _ in items]
+
+    def drift_all():
+        return [sc._reference_boundary_samples(L, sr) for L, sr in lengths]
+
+    def jitter_long():
+        return sch._simulate(inc, np.float32(0.0), N_long, phi, cell)
+
+    out["binding"] = {name: dict(zip(("native_ms", "twin_ms"), turns(fn, fn)))
+                      for name, fn in (("transcription", transcribe_all),
+                                       ("drift_boundaries", drift_all),
+                                       ("jitter_schedule", jitter_long))}
+    print(f"{tag} each binding beside its Python or numpy twin (host clock, "
+          f"median of {REPS}, in turns): " + "; ".join(
+              f"{k} {v['native_ms']} ms vs {v['twin_ms']} ms "
+              f"({v['twin_ms'] / v['native_ms']}x)"
+              for k, v in out["binding"].items())
+          + f" (transcription and drift: the {len(texts)} texts and long_en;"
+          f" jitter: {N_long} steps); card {card}", flush=True)
+
+    # ---- the B = 64 host frontend by stage --------------------------------
+    phs = [transcribe(t, gen) for t in texts]
+    pels = [intonate(ph, gen, voice, contour=False, speaking_rate=1.0)
+            for ph in phs]
+    if [list(p) for p in pels] != [list(g.text_to_phoneme_elems(t))
+                                   for t in texts]:
+        raise AssertionError(f"{tag} the stage breakdown does not rebuild "
+                             f"text_to_phoneme_elems")
+    sr = float(voice.sample_rate)
+    n_refs = [sc._reference_boundary_samples(
+        [pe.length for pe in sc.merge_glides(p)], sr)[0] for p in pels]
+    scores = [sc.score_from_phoneme_elems(p, voice, n_ref=n)
+              for p, n in zip(pels, n_refs)]
+
+    def stack_pad():
+        batch = papi._Batch(scores, voice, None)
+        return sc.stack_scores(batch.scores)
+
+    stages = {
+        "transcription": lambda: [transcribe(t, gen) for t in texts],
+        "intonation": lambda: [intonate(ph, gen, voice, contour=False,
+                                        speaking_rate=1.0) for ph in phs],
+        "drift_boundaries": lambda: [sc._reference_boundary_samples(
+            [pe.length for pe in sc.merge_glides(p)], sr) for p in pels],
+        "score_build": lambda: [sc.score_from_phoneme_elems(
+            p, voice, n_ref=n) for p, n in zip(pels, n_refs)],
+        "stack_and_pad": stack_pad,
+        "frontend": lambda: [g.text_to_score(t) for t in texts]}
+    out["frontend_b64"] = {
+        name: dict(zip(("native_ms", "twin_ms"), turns(fn, fn)))
+        for name, fn in stages.items()}
+    print(f"{tag} the B = {len(texts)} host frontend by stage (host clock, "
+          f"median of {REPS}, with the host library and with the twins in "
+          f"turns): " + "; ".join(
+              f"{k} {v['native_ms']} ms (twins {v['twin_ms']} ms)"
+              for k, v in out["frontend_b64"].items())
+          + "; the score build is merge_glides, selection by the voice "
+          f"table and the boundary retargeting, the drift given; card "
+          f"{card}", flush=True)
+
+    # ---- StreamPool's first tick --------------------------------------------
+    out["first_tick"] = {}
+    for n in SERVE_N:
+        serve_texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(n)]
+        times = {"feed": [], "first": []}
+
+        def first_tick():
+            pool = st.StreamPool(n, voice="plain", language="english",
+                                 block=SERVE_BLOCK)
+            t0 = time.perf_counter()
+            for i in range(n):
+                pool.feed(i, serve_texts[i])
+            pool.flush()
+            t1 = time.perf_counter()
+            pool.read_block()
+            t2 = time.perf_counter()
+            times["feed"].append((t1 - t0) * 1e3)
+            times["first"].append((t2 - t1) * 1e3)
+            del pool
+            torch.cuda.empty_cache()
+
+        first_native, first_twin = turns(first_tick, first_tick)
+        out["first_tick"][n] = {
+            "native_ms": first_native, "twin_ms": first_twin,
+            "first_tick_native_ms": statistics.median(times["first"][2::2]),
+            "first_tick_twin_ms": statistics.median(times["first"][3::2]),
+            "feed_native_ms": statistics.median(times["feed"][2::2]),
+            "feed_twin_ms": statistics.median(times["feed"][3::2])}
+    print(f"{tag} StreamPool(N, device='cuda') feeding N texts and its first "
+          f"tick (all scores built and uploaded; host clock, median of "
+          f"{REPS}, in turns): " + "; ".join(
+              f"N={n}: first tick {v['first_tick_native_ms']} ms (twins "
+              f"{v['first_tick_twin_ms']} ms), feed {v['feed_native_ms']} ms "
+              f"(twins {v['feed_twin_ms']} ms)"
+              for n, v in out["first_tick"].items())
+          + f"; card {card}", flush=True)
+    path = os.path.join(ROOT, "chiprun_out", "chip_smoke_native.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
 def scaling(texts, batch, T, card, zero_state, dev):

@@ -1,9 +1,11 @@
 """grail_tpu_torch — the grail_tpu formant synthesizer on PyTorch and CUDA.
 
 The port of the JAX package (grail_tpu/) to one NVIDIA H100: the host
-frontend (text, languages, voices, scores, jitter schedule) is numpy, the
-device path is PyTorch, and the per-sample synthesis chain runs in one
-hand-written CUDA kernel (synth/csrc/fused_synth.cu) with a plain PyTorch
+frontend (text, languages, voices, scores, jitter schedule) is numpy, with
+its transcriber, drift boundaries and jitter schedule in the native host
+library (runtime/native.py, built at first use); the device path is
+PyTorch, and the per-sample synthesis chain runs in one hand-written CUDA
+kernel (synth/csrc/fused_synth.cu) with a plain PyTorch
 version beside it. Streaming sessions and the StreamPool server
 (runtime/stream.py) run the same kernel in its carry mode, one launch per
 tick, or grail_tpu's xla tick (any block size). grail_tpu's other cores,

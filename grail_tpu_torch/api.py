@@ -6,7 +6,9 @@ The reference's chain (examples/cli.rs:175-184)
          .sequence(voice).jitter(seed, voice).synthesize()
 
 runs as a host frontend (text -> timed phoneme elements -> a numpy Score
-per utterance) followed by one synthesizer program over the padded batch:
+per utterance; transcription and the drift boundaries in the native host
+library, runtime/native.py) followed by one synthesizer program over the
+padded batch:
 the CUDA kernels on a GPU, their plain PyTorch versions on the CPU. Each
 entry point takes grail_tpu's parameters in grail_tpu's order and adds
 `device` last, so a positional call means what it means there. Four

@@ -27,7 +27,7 @@ from typing import Sequence
 
 import numpy as np
 
-from ..runtime.native import load_library
+from ..runtime.native import available, load_library
 from ..synth.score import merge_glides
 from ..voices.voice import VoiceSpec
 from .reference import (NpVoice, oracle_jitter, oracle_select,
@@ -101,13 +101,9 @@ def _marshal_and_run(fn, pelems: Sequence, spec: VoiceSpec,
 
 def native_oracle_available() -> bool:
     """Whether the host library builds and loads here (runtime/native.py
-    builds it at first use). The one place that catches the build's error:
-    it reports, and no caller falls back on its answer."""
-    try:
-        load_library()
-    except (RuntimeError, OSError):
-        return False
-    return True
+    builds it at first use; runtime.native.available): it reports, and no
+    caller falls back on its answer."""
+    return available()
 
 
 def native_oracle_dsp_chain(pelems: Sequence, spec: VoiceSpec,

@@ -10,17 +10,24 @@ builds it itself, from those sources, with the host compiler ($CXX, else
 g++) and the Makefile's flags, into build/grail_tpu_torch/ under a name
 that hashes both sources and the flags: an edit to either is rebuilt, a
 stale library is never loaded, and nothing is written into native/. A
-failed build raises with the compiler's output; no caller carries on
-without the library.
+failed build raises with the compiler's output; no binding returns None
+and no caller carries on without the library.
 
 -ffp-contract=off is what the bit-exact twins rest on: every float32
-operation of the oracle chain and of the carrier recurrence rounds on its
-own, as numpy's does.
+operation of the oracle chain, the carrier recurrence, the drift countdown
+and the jitter phase rounds on its own, as numpy's does.
 
-Bound here: the carrier phase track, the oracle DSP chain (oracle/native.py
-marshals their arguments) and the WAV encoder. The library's other symbols
-(gn_transcribe, gn_drift_boundaries2, gn_jitter_phase_schedule) are not
-bound: the port's host frontend runs its numpy versions.
+Bound here, with grail_tpu's names and signatures:
+  * the host frontend's three loops: `native_transcribe` (`NativeRuleset`,
+    gn_transcribe), behind text/transcribe.transcribe;
+    `native_drift_boundaries` (gn_drift_boundaries2), behind
+    synth/score._reference_boundary_samples; `native_jitter_schedule`
+    (gn_jitter_phase_schedule), behind synth/schedule._simulate. Each is
+    bit-equal to the Python or numpy version beside its caller, which
+    stays as the tests' other side;
+  * the carrier phase track and the oracle DSP chain (oracle/native.py
+    marshals their arguments) and the WAV encoder.
+ctypes releases the GIL for the length of each foreign call.
 """
 
 from __future__ import annotations
@@ -32,10 +39,13 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import List
 
 import numpy as np
 
 from ..synth._build import BUILD_DIR
+from ..text.language import Language
+from ..text.phonemes import Phoneme
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 SOURCES = ("grail_native.cpp", "grail_oracle.cpp")
@@ -109,16 +119,121 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gn_encode_wav.restype = ctypes.c_int64
     lib.gn_encode_wav.argtypes = [f32p, ctypes.c_int64, ctypes.c_int32,
                                   ctypes.POINTER(ctypes.c_uint8)]
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.gn_ruleset_new.restype = ctypes.c_void_p
+    lib.gn_ruleset_new.argtypes = [ctypes.POINTER(ctypes.c_char_p), i32p,
+                                   i32p, ctypes.c_int32]
+    lib.gn_ruleset_free.restype = None
+    lib.gn_ruleset_free.argtypes = [ctypes.c_void_p]
+    lib.gn_transcribe.restype = ctypes.c_int32
+    lib.gn_transcribe.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                  ctypes.c_int32, ctypes.c_int32, i32p,
+                                  ctypes.c_int32]
+    lib.gn_drift_boundaries2.restype = ctypes.c_int64
+    lib.gn_drift_boundaries2.argtypes = [
+        f32p, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+        ctypes.POINTER(ctypes.c_int64), f32p]
+    lib.gn_jitter_phase_schedule.restype = ctypes.c_int64
+    lib.gn_jitter_phase_schedule.argtypes = [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int64, f32p, i32p]
     return lib
 
 
 def load_library() -> ctypes.CDLL:
-    """The bound host library, built on first use."""
+    """The bound host library, built on first use (into BUILD_DIR)."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            _lib = _bind(ctypes.CDLL(str(build(BUILD_DIR))))
         return _lib
+
+
+def available() -> bool:
+    """Whether the host library builds and loads here. The one place that
+    catches the build's error: it reports, and no caller falls back on its
+    answer."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+class NativeRuleset:
+    """Compiled native ruleset handle for a Language."""
+
+    def __init__(self, language: Language):
+        lib = load_library()
+        self._lib = lib
+        rules = language.rules
+        strings = (ctypes.c_char_p * len(rules))(
+            *[r.string.encode() for r in rules])
+        flat: List[int] = []
+        offsets = [0]
+        for r in rules:
+            flat.extend(int(p) for p in r.phonemes)
+            offsets.append(len(flat))
+        flat_arr = (ctypes.c_int32 * max(len(flat), 1))(*flat)
+        off_arr = (ctypes.c_int32 * len(offsets))(*offsets)
+        self._strings_keepalive = strings
+        self._handle = lib.gn_ruleset_new(strings, flat_arr, off_arr,
+                                          len(rules))
+        if not self._handle:
+            # the native layer rejects empty rule strings (they would spin
+            # the automaton); Language validates this too, so reaching here
+            # means a ruleset built around that validation
+            raise ValueError("ruleset contains an empty rule string")
+        self.case_sensitive = language.case_sensitive
+        # worst-case phonemes emitted per consumed input byte: garbage
+        # emits 1 (SILENCE); a matched rule emits len(phonemes) for
+        # len(string) bytes. Sizes the output buffer exactly:
+        # gn_transcribe stops writing at its capacity without a word.
+        self._max_ratio = max(
+            [1] + [-(-len(r.phonemes) // max(len(r.string), 1))
+                   for r in rules])
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.gn_ruleset_free(self._handle)
+            self._handle = None
+
+    def transcribe(self, text: str) -> List[Phoneme]:
+        """The automaton over text's UTF-8 bytes (gn_transcribe); an
+        unmatched multi-byte character emits one SILENCE, as the Python
+        automaton's does."""
+        data = text.encode()
+        cap = self._max_ratio * max(len(data), 1) + 16
+        out = np.empty(cap, np.int32)
+        n = self._lib.gn_transcribe(
+            self._handle, data, len(data), 1 if self.case_sensitive else 0,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap)
+        return [Phoneme(v) for v in out[:n].tolist()]
+
+
+# content-keyed (an id() could be reused after a Language is collected);
+# the lock covers serve mode's frontend thread and the caller, which both
+# transcribe. gn_transcribe only reads its handle, so calls through one
+# handle may overlap.
+_ruleset_cache: dict = {}
+_ruleset_lock = threading.Lock()
+
+
+def _language_key(language: Language):
+    return (language.case_sensitive,
+            tuple((r.string, r.phonemes) for r in language.rules))
+
+
+def native_transcribe(text: str, language: Language) -> List[Phoneme]:
+    """Native transcription of a whole string (no leading SILENCE): the
+    same phonemes as text/transcribe.transcribe_chars on ASCII text."""
+    key = _language_key(language)
+    with _ruleset_lock:
+        rs = _ruleset_cache.get(key)
+        if rs is None:
+            if len(_ruleset_cache) > 64:  # bound the handles' lifetime
+                _ruleset_cache.clear()
+            rs = _ruleset_cache[key] = NativeRuleset(language)
+    return rs.transcribe(text)
 
 
 def native_encode_wav(data: np.ndarray, sample_rate: int) -> bytes:
@@ -139,5 +254,55 @@ def native_encode_wav(data: np.ndarray, sample_rate: int) -> bytes:
     return out[:n].tobytes()
 
 
+def native_drift_boundaries(lengths: np.ndarray, sample_rate: float,
+                            t0: float = 0.0):
+    """Reference-sequencer drift simulation (gn_drift_boundaries2): element
+    end-samples of the per-sample f32 countdown, bit-equal to the numpy twin
+    synth/score._reference_boundary_samples_np. Returns (counts_cum int64
+    [E], residuals f32 [E]); raises ValueError on a NaN element and on one
+    that stalls the countdown, as the twin does."""
+    lib = load_library()
+    lengths = np.ascontiguousarray(lengths, np.float32)
+    e = len(lengths)
+    counts = np.empty(e, np.int64)
+    residuals = np.empty(e, np.float32)
+    if e:
+        stall = lib.gn_drift_boundaries2(
+            lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), e,
+            float(sample_rate), float(t0),
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            residuals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if stall >= 0:
+            bad = float(lengths[stall])
+            if np.isnan(bad):
+                raise ValueError(
+                    f"element length must be finite, got NaN "
+                    f"(element {stall})")
+            raise ValueError(
+                f"element length {bad:.1f}s stalls the reference's f32 "
+                "countdown (dt is below half an ulp); the reference "
+                "sequencer would never advance past it — split the element")
+    return counts, residuals
+
+
+def native_jitter_schedule(inc, phase0, T: int, phi: np.ndarray,
+                           cell: np.ndarray) -> int:
+    """Reference value-noise phase recurrence (gn_jitter_phase_schedule):
+    T steps of `phase = f32(phase + inc); if phase > 1: phase -= 1` from
+    `phase0` into phi f32 [T] / cell i32 [T] (cell = wraps since this call,
+    including a wrap at that sample). Returns the total wrap count;
+    bit-equal to synth/schedule._np_simulate."""
+    lib = load_library()
+    assert phi.dtype == np.float32 and cell.dtype == np.int32
+    assert phi.flags.c_contiguous and cell.flags.c_contiguous
+    assert len(phi) >= T and len(cell) >= T
+    return int(lib.gn_jitter_phase_schedule(
+        float(np.float32(inc)), float(np.float32(phase0)), int(T),
+        phi.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        cell.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))))
+
+
 __all__ = ["NATIVE_DIR", "SOURCES", "CXXFLAGS", "build", "build_info",
-           "load_library", "native_encode_wav"]
+           "load_library", "available", "NativeRuleset",
+           "native_transcribe", "native_encode_wav",
+           "native_drift_boundaries", "native_jitter_schedule"]

@@ -59,7 +59,7 @@ from ..languages import get_language
 from ..synth import kernel_fused as kf
 from ..synth.elem import SynthesisElem
 from ..synth.jitter import JitterLattice, apply_jitter
-from ..synth.score import (Score, _reference_boundary_samples_np,
+from ..synth.score import (Score, _reference_boundary_samples,
                            merge_glides, score_from_phoneme_elems,
                            stack_scores)
 from ..synth.seq_scan import carrier_scan, jsched_scan
@@ -757,14 +757,14 @@ class StreamSession:
                 self._endn = self._endn[:m]
                 self._resid = self._resid[:m]
             elif m > 0:
-                endn_sfx, resid_sfx = _reference_boundary_samples_np(
+                endn_sfx, resid_sfx = _reference_boundary_samples(
                     lengths[m:], self.sample_rate,
                     t0=float(self._resid[m - 1]))
                 self._endn = np.concatenate(
                     [self._endn[:m], endn_sfx + self._endn[m - 1]])
                 self._resid = np.concatenate([self._resid[:m], resid_sfx])
             else:
-                self._endn, self._resid = _reference_boundary_samples_np(
+                self._endn, self._resid = _reference_boundary_samples(
                     lengths, self.sample_rate, t0=float(self._drift_t0))
             self._endn_lengths = lengths
             self._endn_t0 = np.float32(self._drift_t0).tobytes()

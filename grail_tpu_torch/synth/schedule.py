@@ -19,8 +19,10 @@ rate, so every lane of every batch shares one instance per rate.
   * `device_window(inc, start, n, device)` -> the same as tensors, memoized
     per device.
 
-A copy of grail_tpu/synth/schedule.py with the simulation in numpy only (the
-native simulator is bound in a later slice).
+A copy of grail_tpu/synth/schedule.py: the simulation runs in the host
+library (`_simulate`: runtime/native.native_jitter_schedule, the C++ loop
+gn_jitter_phase_schedule); `_np_simulate`, its vectorised numpy twin, stays
+as the tests' other side.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from ..runtime.native import native_jitter_schedule
 
 _CHK = 1 << 20        # checkpoint cadence (samples)
 _SEG = 1 << 16        # longest run _np_simulate accumulates in one call
@@ -77,6 +81,14 @@ def _np_simulate(inc: np.float32, phase0: np.float32, T: int,
     return wraps
 
 
+def _simulate(inc: np.float32, phase0: np.float32, T: int,
+              phi: np.ndarray, cell: np.ndarray) -> int:
+    """T steps of the reference recurrence from phase0 into phi/cell
+    (cell counts wraps since this call's start), in the host library;
+    bit-equal to _np_simulate. Returns the wrap count."""
+    return native_jitter_schedule(inc, phase0, T, phi, cell)
+
+
 class PhaseSchedule:
     """Checkpointed exact phase schedule for one f32 jitter rate.
 
@@ -97,8 +109,8 @@ class PhaseSchedule:
     def _ensure_checkpoints(self, k: int) -> None:
         """Extend checkpoints to cover step k (lock held)."""
         while (len(self._ck_phase) - 1) * _CHK < k:
-            w = _np_simulate(self.inc, self._ck_phase[-1], _CHK,
-                             self._scratch_phi, self._scratch_cell)
+            w = _simulate(self.inc, self._ck_phase[-1], _CHK,
+                          self._scratch_phi, self._scratch_cell)
             self._ck_phase.append(np.float32(self._scratch_phi[-1]))
             self._ck_cell.append(self._ck_cell[-1] + int(w))
 
@@ -113,8 +125,8 @@ class PhaseSchedule:
             rem = k - i * _CHK
             if rem == 0:
                 return self._ck_phase[i], self._ck_cell[i]
-            w = _np_simulate(self.inc, self._ck_phase[i], rem,
-                             self._scratch_phi, self._scratch_cell)
+            w = _simulate(self.inc, self._ck_phase[i], rem,
+                          self._scratch_phi, self._scratch_cell)
             return (np.float32(self._scratch_phi[rem - 1]),
                     self._ck_cell[i] + int(w))
 
@@ -137,11 +149,11 @@ class PhaseSchedule:
             phase = self._ck_phase[i]
             base_cell = self._ck_cell[i]
             if rem:
-                w = _np_simulate(self.inc, phase, rem,
-                                 self._scratch_phi, self._scratch_cell)
+                w = _simulate(self.inc, phase, rem,
+                              self._scratch_phi, self._scratch_cell)
                 phase = np.float32(self._scratch_phi[rem - 1])
                 base_cell += int(w)
-            _np_simulate(self.inc, phase, n, phi[lead:], cell[lead:])
+            _simulate(self.inc, phase, n, phi[lead:], cell[lead:])
         if base_cell:
             cell[lead:] += np.int32(base_cell)
         return phi, cell

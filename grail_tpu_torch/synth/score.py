@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.constants import NUM_FORMANTS
+from ..runtime.native import native_drift_boundaries
 from ..text.intonate import PhonemeElem
 from ..text.phonemes import is_sound, sound_index
 from .elem import SynthesisElem
@@ -72,6 +73,17 @@ class Score(NamedTuple):
                      length=f32(self.length),
                      blend_length=f32(self.blend_length),
                      cum_length=f32(self.cum_length))
+
+
+def _reference_boundary_samples(lengths, sample_rate: float,
+                                t0: float = 0.0):
+    """Exact element end-samples of the reference's f32 countdown, from the
+    native loop (runtime/native.native_drift_boundaries: gn_drift_boundaries2
+    in native/grail_native.cpp), bit-equal to the numpy twin below, which
+    stays as the tests' other side. Returns (cumulative end samples [E]
+    int64, residuals [E] f32)."""
+    return native_drift_boundaries(np.asarray(lengths, np.float32),
+                                   sample_rate, t0)
 
 
 def _reference_boundary_samples_np(lengths, sample_rate: float,
@@ -292,7 +304,7 @@ def score_from_phoneme_elems(
     the (already glide-merged) element list, skipping the O(total samples)
     drift simulation — streaming sessions cache it per score revision.
     `drift_t0` seeds the drift simulation's countdown residual (see
-    _reference_boundary_samples_np) when n_ref is not given.
+    _reference_boundary_samples) when n_ref is not given.
     """
     phoneme_elems = merge_glides(phoneme_elems)
     E = len(phoneme_elems)
@@ -313,7 +325,7 @@ def score_from_phoneme_elems(
     # _reference_boundary_samples_np for why this is audible
     if E:
         if n_ref is None:
-            n_ref, _ = _reference_boundary_samples_np(
+            n_ref, _ = _reference_boundary_samples(
                 [pe.length for pe in phoneme_elems],
                 float(voice.sample_rate), t0=drift_t0)
         assert len(n_ref) == E, "n_ref must cover the glide-merged elements"

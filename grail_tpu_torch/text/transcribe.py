@@ -14,9 +14,11 @@ by six unit tests there (src/lib.rs:1210-1358) and re-pinned by ours:
   * rules can emit multiple phonemes (buffered).
 
 Transcription is host-side preprocessing (variable-length, data-dependent):
-the device pipeline consumes its fixed-shape output (phoneme id arrays). The
-port runs this Python automaton; the native C++ twin in native/ is not
-bound yet.
+the device pipeline consumes its fixed-shape output (phoneme id arrays).
+`transcribe` runs the native C++ twin of this automaton
+(native/grail_native.cpp through runtime/native.py, built at first use) on
+ASCII text, as grail_tpu does where its library is built; the Python
+automaton runs other text, and any text with prefer_native=False.
 """
 
 from __future__ import annotations
@@ -174,8 +176,8 @@ def transcribe_partial(text: str, language: Language):
     # unreachable
 
 
-def transcribe(text: str, language: Language,
-               leading_silence: bool = True) -> List[Phoneme]:
+def transcribe(text: str, language: Language, leading_silence: bool = True,
+               prefer_native: bool = True) -> List[Phoneme]:
     """Transcribe a whole string to a phoneme list.
 
     `leading_silence=True` matches the reference's public pipeline: its
@@ -183,9 +185,24 @@ def transcribe(text: str, language: Language,
     (src/lib.rs:1197-1204), so every utterance starts with one SILENCE
     phoneme. The raw automaton (reference unit tests construct the
     Transcriber with an empty buffer) is `transcribe_chars`.
+
+    ASCII text with `prefer_native` runs the native transcriber (the same
+    automaton over bytes, runtime/native.native_transcribe); a host library
+    that fails to build raises. Other text, and prefer_native=False, run
+    the Python automaton.
     """
     out = [Phoneme.SILENCE] if leading_silence else []
-    out.extend(transcribe_chars(text, language))
+    if prefer_native and text.isascii():
+        from ..runtime.native import native_transcribe
+
+        try:
+            out.extend(native_transcribe(text, language))
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"{e}\n(transcribe(..., prefer_native=False) runs the "
+                "Python automaton)") from e
+    else:
+        out.extend(transcribe_chars(text, language))
     return out
 
 

@@ -4,7 +4,8 @@ Each function or class that both packages export takes grail_tpu's
 parameters, in grail_tpu's order and with its defaults, so that a
 positional call means the same in both; the port may add `device`, last.
 Also the two names the port lacked: Score.total_seconds and
-oracle.native_oracle_available.
+oracle.native_oracle_available. `transcribe` and the host library's shared
+names (runtime/native.py) are held the same way.
 """
 
 import inspect
@@ -16,14 +17,18 @@ import torch
 import grail_tpu.api as japi
 from grail_tpu.oracle import reference as jref
 from grail_tpu.parallel import sharded as jsharded
+from grail_tpu.runtime import native as jnative
 from grail_tpu.runtime import stream as jstream
 from grail_tpu.synth.score import stack_scores as jstack_scores
+from grail_tpu.text.transcribe import transcribe as jtranscribe
 from grail_tpu.voices.preset_generic import SPEC as JSPEC
 
 import grail_tpu_torch.api as papi
 from grail_tpu_torch import convert, oracle
 from grail_tpu_torch.parallel import sharded as psharded
+from grail_tpu_torch.runtime import native as pnative
 from grail_tpu_torch.runtime import stream as pstream
+from grail_tpu_torch.text.transcribe import transcribe as ptranscribe
 from grail_tpu_torch.voices.preset_generic import SPEC as PSPEC
 
 torch.set_num_threads(2)
@@ -36,7 +41,11 @@ PAIRS = [(name, getattr(japi, name), getattr(papi, name))
      psharded.synthesize_block_sp),
     ("sharded_pipeline", jsharded.sharded_pipeline,
      psharded.sharded_pipeline),
-]
+    ("transcribe", jtranscribe, ptranscribe),
+] + [(name, getattr(jnative, name), getattr(pnative, name))
+     for name in ("native_transcribe", "native_drift_boundaries",
+                  "native_jitter_schedule", "native_encode_wav",
+                  "NativeRuleset", "available")]
 
 
 def _params(fn):
