@@ -160,13 +160,35 @@ of JAX. Phases, one line each; any failure raises and exits non-zero:
      the host library and with the twins; StreamPool's first tick at N =
      128 and 512 (serving cell) with each. The numbers also go to
      chiprun_out/chip_smoke_native.json.
+ 19. the mesh-sharded pool (StreamPool(mesh=), parallel.
+     sharded_stream_tick_fn; kernel 1's carry mode on each rank's
+     sessions): the serving cell, N = 512, block 1,024, plain, english,
+     every session fed, pin_elems=64, on meshes (1, 1) over NCCL and (2, 1)
+     and (4, 1) over gloo, each a spawn of ranks
+     (parallel/_ranks.pool_chip_case) that share cuda:0. The parent runs the
+     unsharded pool once (20 ticks, save(), 3 ticks) and writes it to
+     build/chip_smoke_pool_mesh/. Each rank: 20 eager ticks of its own
+     rows bit-equal to the unsharded rows, three of them (audio, sf, si)
+     bit-equal to the plain carry version on the same inputs, exactly one
+     fused_synth_carry a tick and no other kernel, no host->card copy
+     dispatched in ticks 2-19; save() (gathered over the mesh) equal to
+     the unsharded blob array for array, the 3 ticks after it bit-equal,
+     and on rank 0 the blob continuing bit-equal in an unsharded pool; 20
+     served ticks (one counted replay each) bit-equal to a twin's
+     read_block, with a feed to session 1 at tick 3 (grail_tpu's pattern).
+     Per rank: feeding, the first tick (the host pass over its N / n_data
+     sessions), steady read_block (host clock, median of 5), the tick and
+     the served replay (CUDA events, median of 5); per mesh the spawn's
+     wall time. Ranks that share one card and one host give no scaling
+     figure. The numbers also go to chiprun_out/chip_smoke_pool_mesh.json.
 
 Then one JSON line naming each kernel with its launches (its path's run),
 error, times, bound and the shape they were taken at (fused_synth: the
 split's, with the unsplit time beside it; synth_core: one launch of the
 core route, with the per-call time and the unsplit launch beside it;
-fused_synth_carry: one tick at N = 512, with N = 128 beside it, and
-phase 15's served numbers as served_*;
+fused_synth_carry: one tick at N = 512, with N = 128 beside it,
+phase 15's served numbers as served_*, and phase 19's launches per rank
+per tick by mesh as mesh_launches_per_tick;
 fused_synth_track: the long-form split's lanes; fma_peak: the mul_add
 variant, with the fma variant beside it; carrier_scan and jsched_scan: the
 xla tick's shape [441, 512], the xla batch's block [4096, 64] beside it,
@@ -311,6 +333,15 @@ SP_MESHES = ((1, 1, "nccl"), (1, 2, "gloo"), (1, 4, "gloo"), (2, 1, "gloo"))
 SP_REPS = 3                 # timed calls per rank
 SP_TIMEOUT = 600.0          # seconds per spawn
 SP_DP_DB = -130.0           # (2, 1) against (1, 1), if not bit-equal
+# phase 19, the mesh-sharded pool: the serving cell (N = 512, block 1,024,
+# pin_elems = 64) on each mesh, a spawn of ranks sharing cuda:0 (NCCL for
+# the one-rank mesh, gloo for the shared ones, as phase 17)
+POOL_MESHES = ((1, 1, "nccl"), (2, 1, "gloo"), (4, 1, "gloo"))
+POOL_MESH_TICKS = 20        # eager ticks held against the unsharded pool,
+#                             and served ticks against a twin's read_block
+POOL_MESH_PLAIN = (10, 11, 12)  # of them, held against the plain version
+POOL_MESH_CONT = 3          # ticks after save(), in either pool
+POOL_MESH_TIMEOUT = 300.0   # seconds per spawn
 SEQ_SHAPES = ((441, 512), (4096, 64))   # [T, lanes]: the tick, the batch
 SEQ_REPS = 50               # launches between two events, seq_scan's own time
 # seq_scan.cu per lane-sample: the carrier's add, compare, subtract and
@@ -890,6 +921,9 @@ def main():
     # ---- 18: the native host tier (runtime/native.py) ---------------------
     native_tier_phase(card, texts)
 
+    # ---- 19: the mesh-sharded pool (StreamPool(mesh=)) ---------------------
+    pool_mesh = pool_mesh_phase(card)
+
     if "--scaling" in sys.argv[1:]:
         scaling(texts, batch, T, card, zero_state, dev)
 
@@ -1006,7 +1040,10 @@ def main():
          "n128_served_host_p50_ms": v128["host_p50_ms"],
          "n128_served_host_p99_ms": v128["host_p99_ms"],
          "n128_served_idle_share": v128["idle_share"],
-         "n128_served_misses_depth2": v128["misses_depth2"]},
+         "n128_served_misses_depth2": v128["misses_depth2"],
+         "mesh_launches_per_tick": {
+             tag: [r["launches_per_tick"] for r in m["ranks"]]
+             for tag, m in pool_mesh["meshes"].items()}},
         {"name": "fused_synth_track", "route": "cuda",
          "source": "grail_tpu_torch/synth/csrc/fused_synth.cu",
          "replaces": "grail_tpu/synth/kernel_fused.py:420",
@@ -1861,11 +1898,11 @@ def serve_mode(card, dev, drive, phase11, blk=SERVE_BLOCK, backend=None,
         p50, p99 = (float(x) for x in np.percentile(host, [50, 99]))
         tick_ms = median_ms(pool.serve_tick)
         cur = pool._serve_cur
-        conv = st._OUTPUTS[pool.output]
         sf, si, off = (x.clone() for x in (pool._sf, pool._si,
                                            pool._serve_off))
+        tick = pool._tick_program(blk)
         eager_ms = median_ms(lambda: st._served_tick(
-            "kernel", cur["dev"], sf, si, off, blk, conv, program))
+            tick, cur["dev"], sf, si, off, blk))
         replay_ms = median_ms(cur["graph"].replay)   # state moves on: last
         quiet_ms = host_ms(pool._serve_build)        # nothing to publish
         k = [0]
@@ -2517,6 +2554,76 @@ def sharding_phase(card, dev, texts, voice):
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_sharding.json"),
               "w") as f:
+        json.dump(summary, f, indent=1)
+    shutil.rmtree(work, ignore_errors=True)
+    return summary
+
+
+def pool_mesh_phase(card):
+    """Phase 19, the mesh-sharded StreamPool at the serving cell's width:
+    the unsharded pool on the card (POOL_MESH_TICKS eager ticks, save(),
+    POOL_MESH_CONT ticks) written to build/chip_smoke_pool_mesh/, then one
+    spawn of parallel/_ranks.pool_chip_case ranks per mesh of POOL_MESHES,
+    which check themselves against it (see pool_chip_case) and save their
+    numbers. Prints a line per mesh and writes
+    chiprun_out/chip_smoke_pool_mesh.json. Returns the numbers."""
+    import shutil
+
+    import torch
+
+    from grail_tpu_torch.parallel import _ranks
+    from grail_tpu_torch.runtime import stream as st
+
+    n, blk = SERVE_N[-1], SERVE_BLOCK
+    texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(n)]
+    work = os.path.join(ROOT, "build", "chip_smoke_pool_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pool = st.StreamPool(n, voice="plain", language="english", block=blk,
+                         pin_elems=64)
+    for i, t in enumerate(texts):
+        pool.feed(i, t)
+        pool.flush(i)
+    rows = torch.cat([pool.read_block(sync=False)
+                      for _ in range(POOL_MESH_TICKS)], 1).cpu()
+    blob = pool.save()
+    cont = torch.cat([pool.read_block(sync=False)
+                      for _ in range(POOL_MESH_CONT)], 1).cpu()
+    del pool
+    torch.cuda.empty_cache()
+    torch.save(dict(n=n, block=blk, texts=texts, ticks=POOL_MESH_TICKS,
+                    rows=rows, blob=blob, cont=cont),
+               os.path.join(work, "pool_mesh.pt"))
+
+    summary = {"n": n, "block": blk, "card": card, "meshes": {}}
+    for nd, ns, backend in POOL_MESHES:
+        world, tag = nd * ns, f"{nd}x{ns}"
+        t0 = time.perf_counter()
+        _ranks.spawn(_ranks.pool_chip_case, world,
+                     (world, nd, ns, work, backend, POOL_MESH_PLAIN),
+                     POOL_MESH_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        rs = _ranks.load_results(work, f"card_pool_{tag}", world)
+        summary["meshes"][tag] = dict(backend=backend, spawn_s=spawn_s,
+                                      ranks=rs)
+        label = ("one rank on the card" if world == 1 else
+                 f"{world} ranks sharing one card and one host, not a "
+                 "scaling figure")
+        print(f"[19 pool mesh] mesh {tag} over {backend} ({label}): "
+              f"StreamPool({n}, block {blk}, pin_elems=64, mesh), every "
+              f"session fed; per rank {POOL_MESH_TICKS} eager ticks "
+              f"bit-equal to the unsharded pool, ticks "
+              f"{list(POOL_MESH_PLAIN)} to the plain version, one "
+              f"fused_synth_carry a tick, no host->card copy in ticks 2-"
+              f"{POOL_MESH_TICKS - 1}; save() equal to the unsharded blob "
+              f"and {POOL_MESH_CONT} ticks after it bit-equal (rank 0 also "
+              f"in an unsharded pool); {POOL_MESH_TICKS} served ticks "
+              f"bit-equal to a twin's read_block, a feed to session 1 at "
+              f"tick 3; per rank {json.dumps(rs)}; spawn {spawn_s:.1f} s; "
+              f"card {card}", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           "chip_smoke_pool_mesh.json"), "w") as f:
         json.dump(summary, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)
     return summary

@@ -1,6 +1,6 @@
-"""dp x sp synthesis over torch.distributed: the counterpart of
-grail_tpu/parallel/sharded.py (make_mesh, _sp_core, synthesize_block_sp,
-sharded_pipeline).
+"""dp x sp synthesis and the sharded serving tick over torch.distributed:
+the counterpart of grail_tpu/parallel/sharded.py (make_mesh, _sp_core,
+synthesize_block_sp, sharded_pipeline, sharded_stream_tick_fn).
 
 Batched synthesis has no cross-utterance reductions, so data parallelism
 ('data') shards utterances and needs no collective at all. Sequence
@@ -33,10 +33,15 @@ backend or device on a failure, a failed collective raises.
 
 Like grail_tpu's, the sp core is plain tensor code with the Q32 carrier
 only, and it reaches no kernel.
+
+Serving (sharded_stream_tick_fn, behind StreamPool(mesh=)) shards sessions
+over 'data' and is embarrassingly parallel: each rank runs the fused
+synthesizer's carry tick on the sessions it owns, with no collective.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -98,7 +103,7 @@ class _Shard(NamedTuple):
 
 
 def _shard(mesh) -> _Shard:
-    names = tuple(mesh.mesh_dim_names or ())
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
     if names != _DIMS:
         raise ValueError(f"mesh dims {names}, expected {_DIMS} (make_mesh)")
     ranks = mesh.mesh.flatten().tolist()
@@ -108,6 +113,17 @@ def _shard(mesh) -> _Shard:
     nd, ns = mesh.mesh.shape
     return _Shard(int(nd), mesh.get_local_rank("data"), int(ns),
                   mesh.get_local_rank("seq"), mesh.get_group("seq"), ranks)
+
+
+def _row_objects(obj, mesh) -> list:
+    """all_gather_object of this rank's `obj` over the mesh; the objects of
+    'seq' coordinate 0 of each data row, in 'data' order (the ranks of a
+    row replicate it). Collective: every rank calls it, on the thread that
+    makes the group's other calls."""
+    sh = _shard(mesh)
+    objs = [None] * dist.get_world_size()
+    dist.all_gather_object(objs, obj)
+    return [objs[sh.ranks[d * sh.n_seq]] for d in range(sh.n_data)]
 
 
 def _gather(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -289,4 +305,45 @@ def sharded_pipeline(score_batch: Score, lattice_batch: JitterLattice,
     return blocks.permute(0, 2, 1, 3).reshape(B, T)
 
 
-__all__ = ["make_mesh", "synthesize_block_sp", "sharded_pipeline"]
+def sharded_stream_tick_fn(mesh, block: int, interpret: bool = False,
+                           out_fmt: str = "f32", lat_window=None):
+    """Multi-GPU serving: the StreamPool tick of `block` samples for the
+    sessions this rank owns, with sessions sharded over the mesh's 'data'
+    axis (grail_tpu's shard_map with every input P('data') and the jitter
+    rate P()). Serving is embarrassingly parallel across sessions, so the
+    tick has no collective: each rank launches the fused synthesizer's
+    carry mode (runtime.stream._tick; the CUDA kernel on a card, its plain
+    version only on a CPU mesh) over its rows and converts the audio to
+    `out_fmt` ('f32', 'pcm16' or 'ulaw') there. The per-lane arithmetic
+    does not depend on the lane count and the port contracts no a*b+c, so
+    a rank's rows equal the unsharded pool's bit for bit (grail_tpu's match
+    to ~1 ulp).
+
+    Returns tick(dev, sf, si) -> (audio [B_local, block], sf, si). Where
+    grail_tpu's program takes the global scores, lattices, jitter
+    parameters, offsets, jitter state and SynthState and returns global
+    arrays, the port's takes what one rank holds, in the port's state
+    layout: `dev`, the device tables of its B_local sessions (score tables
+    n/scal/vec/par, the lattice window `lat` and `lat_base`, `offsets`,
+    the jitter rate `inc`; StreamPool._prepare_tick builds them), and the
+    carried rows sf f32 [B_local, 24] and si int32 [B_local, 5], the jitter
+    state in si's last two columns. The offsets are not advanced (the pool
+    does that on the device).
+
+    `interpret` is accepted for grail_tpu's callers and changes nothing:
+    the mesh's device decides, as 'fused_interpret' is another name for
+    'fused'. `lat_window` is accepted too and unused: the kernel reads its
+    lattice rows by absolute cell (cell - lat_base) from the window, so
+    grail_tpu's truncation of the window has no counterpart."""
+    from ..runtime.stream import _OUTPUTS, _converted_tick, _impl
+
+    _shard(mesh)
+    if out_fmt not in _OUTPUTS:
+        raise ValueError(f"out_fmt must be one of {sorted(_OUTPUTS)}, got "
+                         f"{out_fmt!r}")
+    return functools.partial(_converted_tick, _impl(_mesh_device(mesh)),
+                             "fused", int(block), out_fmt)
+
+
+__all__ = ["make_mesh", "synthesize_block_sp", "sharded_pipeline",
+           "sharded_stream_tick_fn"]

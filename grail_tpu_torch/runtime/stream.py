@@ -37,14 +37,19 @@ at row `cell - lat_base`.
     real-time thread's tick is one replay of a CUDA graph captured for the
     adopted set (on the CPU, the same tick run eagerly).
 
-The JAX pool's mesh sharding is not ported here; asking for it raises: it
-comes with a later slice.
+  * A mesh (`StreamPool(..., mesh=parallel.make_mesh(n_data, n_seq))`):
+    sessions shard over the mesh's 'data' axis, one process per rank
+    (torch.distributed, SPMD). Each rank runs the host pass and the carry
+    tick (parallel.sharded_stream_tick_fn) over the sessions it owns and
+    reads back its own rows; the tick has no collective. save() gathers
+    the sessions' payloads over the mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import threading
 import time
@@ -69,9 +74,6 @@ from ..text.intonate import PhonemeElem, intonate
 from ..text.phonemes import Phoneme
 from ..text.transcribe import transcribe_chars, transcribe_partial
 from ..voices import Voice, get_voice
-
-_LATER_SLICE = "a later slice of the port"
-
 
 class _IncrementalLattice:
     """Value-noise lattices grown on demand (unbounded sessions), with a
@@ -387,19 +389,27 @@ _TICK_LAUNCHES = {"fused": ("fused_synth_carry",),
                   "xla": ("carrier_scan", "jsched_scan")}
 
 
-def _served_tick(impl: str, dev: dict, sf: torch.Tensor, si: torch.Tensor,
-                 offsets: torch.Tensor, blk: int, conv, program="fused"):
-    """One served tick into fixed buffers, as serve mode captures it: the
-    tick of `program` over the table set `dev` from `offsets`, the carried
-    rows written back into `sf` and `si` in place, the offsets advanced in
-    place and the audio converted by `conv` (None for f32). Returns the
-    audio."""
-    out, sf2, si2 = _TICKS[program](impl, dict(dev, offsets=offsets), sf,
-                                    si, blk)
+def _converted_tick(impl: str, program: str, blk: int, output: str,
+                    dev: dict, sf: torch.Tensor, si: torch.Tensor):
+    """The tick of `program` over `dev` with its audio in the `output`
+    format: (audio, sf, si). A pool binds everything before `dev`
+    (StreamPool._tick_program), so that one call runs one tick."""
+    out, sf, si = _TICKS[program](impl, dev, sf, si, blk)
+    conv = _OUTPUTS[output]
+    return (out if conv is None else conv(out)), sf, si
+
+
+def _served_tick(tick, dev: dict, sf: torch.Tensor, si: torch.Tensor,
+                 offsets: torch.Tensor, blk: int):
+    """One served tick into fixed buffers, as serve mode captures it:
+    `tick` (a pool's _tick_program) over the table set `dev` from
+    `offsets`, the carried rows written back into `sf` and `si` in place
+    and the offsets advanced in place by `blk`. Returns the audio."""
+    out, sf2, si2 = tick(dict(dev, offsets=offsets), sf, si)
     sf.copy_(sf2)
     si.copy_(si2)
     offsets.add_(blk)
-    return out if conv is None else conv(out)
+    return out
 
 
 def _jparams(voices, inc):
@@ -467,6 +477,9 @@ class StreamSession:
         self._score_cache = {}       # {(rev, pad_to): Score}
         self._horizon_tail = 0       # trailing auto-appended idle silence
         self._pool_ref = None        # (pool, index) when owned by a pool
+        self._ghost = False          # in a mesh pool, owned by another
+        #                              rank: feeds keep only the command
+        #                              grammar's state (StreamPool)
         self._consumed_samples = 0   # samples consumed within the score
         self._jitter_pos = 0         # absolute sample counter (never
         #                              rebased: the jitter clock)
@@ -516,7 +529,7 @@ class StreamSession:
         session's revision (cache keys) and the owning pool's mutation
         counter (the O(1) steady-state tick fast path)."""
         self._rev += 1
-        if self._pool_ref is not None:
+        if self._pool_ref is not None and not self._ghost:
             self._pool_ref[0]._mut += 1
 
     # -- frontend ----------------------------------------------------------
@@ -557,6 +570,8 @@ class StreamSession:
                 else:
                     self._apply_command(kind, payload)
             return
+        if self._ghost:
+            return      # another rank synthesizes this session's text
         if self.contour:
             # clause-typed prosody needs the clause terminator before any
             # of the clause can be intonated; buffer until punctuation or
@@ -933,8 +948,9 @@ class StreamSession:
         rows; pull this session's rows only when needed (checkpoints)."""
         if self._pool_ref is not None:
             pool, idx = self._pool_ref
-            self._sf = pool._sf[idx:idx + 1].clone()
-            self._si = pool._si[idx:idx + 1].clone()
+            r = idx - pool._lo
+            self._sf = pool._sf[r:r + 1].clone()
+            self._si = pool._si[r:r + 1].clone()
 
     def _read_block(self) -> np.ndarray:
         """One block of the solo stream: the pool's carry tick on one lane
@@ -1100,7 +1116,12 @@ class StreamSession:
     def _check_not_serving(self, what: str) -> None:
         """A pool-owned session shares StreamPool.save/load's torn-state
         hazard: while serve mode is live the host counters sync only at
-        frontend cycles and the real-time thread writes the pool's rows."""
+        frontend cycles and the real-time thread writes the pool's rows.
+        In a mesh pool only the owning rank holds a session's state."""
+        if self._ghost:
+            raise RuntimeError(
+                f"{what} on session {self._pool_ref[1]}, which another rank "
+                "of the pool's mesh owns; pool.save() gathers every session")
         if self._pool_ref is not None and self._pool_ref[0]._serving:
             raise RuntimeError(
                 f"{what} on a pool-owned session while serve mode is live "
@@ -1126,8 +1147,8 @@ class StreamSession:
             pool, idx = self._pool_ref
             if pool._inflight is not None:
                 pool.drain()   # a tick dispatched before the restore
-            pool._sf[idx] = self._sf[0].to(pool.device)
-            pool._si[idx] = self._si[0].to(pool.device)
+            pool._sf[idx - pool._lo] = self._sf[0].to(pool.device)
+            pool._si[idx - pool._lo] = self._si[0].to(pool.device)
             pool._cache_key = None
             pool._lat_key = None
 
@@ -1159,8 +1180,39 @@ class StreamPool:
     'fused_interpret' is another name for it, so that calls written for
     grail_tpu run unchanged) or 'xla' (the xla tick: one carrier_scan and
     one jsched_scan launch and plain PyTorch). A `block` that is not a
-    multiple of 128 selects 'xla', as in grail_tpu. A `mesh` raises
-    ValueError: it comes with a later slice.
+    multiple of 128 selects 'xla', as in grail_tpu.
+
+    `device` is where the tick runs: 'cuda' (None, the default, without a
+    mesh) or 'cpu' (the plain versions).
+
+    `mesh` (parallel.make_mesh over an initialised process group) shards
+    the sessions over its 'data' axis, as grail_tpu's sharded pool does.
+    torch runs one process per rank, so the contract is SPMD:
+
+      * every rank constructs the same pool and makes the same calls in the
+        same order (feed, flush, reads, serve_*, save, load);
+      * the rank at 'data' coordinate d owns sessions [d*n/n_data,
+        (d+1)*n/n_data) (`local_sessions`); the ranks of one data row (its
+        'seq' coordinates) replicate it. `sessions` holds all n, with
+        grail_tpu's seeds and indices, but the host pass, the uploads, the
+        carried rows and the tick cover only the owned ones;
+      * a feed to a session that another rank owns is dropped after its
+        command grammar has run, so a call that raises on the owner (a bad
+        inline command) raises on every rank;
+      * every read (read_block(s), collect, tick_pipelined, drain,
+        serve_tick) returns the rank's own rows, [n/n_data, k*block] in
+        session order; the tick (parallel.sharded_stream_tick_fn, the
+        carry launch and the output conversion) has no collective;
+      * save() is collective: it gathers the owned sessions' payloads over
+        the mesh (seq coordinate 0 of each row), and every rank returns
+        the one blob of all n sessions in the unsharded layout. load()
+        restores the owned sessions of any pool blob, sharded or not.
+
+    A mesh needs the fused tick (backend 'xla', or a block that is not a
+    multiple of 128, raises ValueError) and n divisible by its 'data'
+    size; the pool's device is the mesh's (a `device` that disagrees
+    raises ValueError). Nothing falls back: a failed launch, capture or
+    collective raises.
 
     `pin_elems` pins the element-count bucket E of the device tables (to
     at least `_bucket(pin_elems)`), so that a session crossing a power of
@@ -1180,6 +1232,11 @@ class StreamPool:
         pool.serve_start()             # strict-deadline serving
         audio = pool.serve_tick()      # [8, block] on the device
         pool.serve_stop()
+
+        # on each of 4 ranks, after init_process_group and set_device:
+        pool = StreamPool(8, voice="plain", mesh=make_mesh(4, 1))
+        pool.feed(3, "hello")          # rank 1 speaks it, the rest drop it
+        audio = pool.read_block()      # [2, block]: this rank's sessions
     """
 
     def __init__(self, n: int, voice="generic", language="generic",
@@ -1187,7 +1244,7 @@ class StreamPool:
                  speaking_rate: float = 1.0, backend: Optional[str] = None,
                  mesh=None, output: str = "f32",
                  pin_elems: Optional[int] = None,
-                 jitter_horizon_s: float = 60.0, device="cuda"):
+                 jitter_horizon_s: float = 60.0, device=None):
         if output not in _OUTPUTS:
             raise ValueError(
                 f"output must be 'f32', 'pcm16' or 'ulaw', got {output!r}")
@@ -1195,14 +1252,18 @@ class StreamPool:
         if backend not in _BACKENDS:
             raise ValueError(f"StreamPool backend must be 'fused', "
                              f"'fused_interpret' or 'xla', got {backend!r}")
-        if mesh is not None:
-            raise ValueError("a mesh-sharded StreamPool is not ported yet: "
-                             f"it comes with {_LATER_SLICE}")
         if int(block) <= 0:
             raise ValueError(f"block={block} must be positive")
         if int(block) % kf.CHUNK:
             backend = "xla"     # the carry kernel runs whole chunks
-        self.device = _resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = _resolve_device("cuda" if device is None
+                                          else device)
+            self._lo, self._hi = 0, n
+        else:
+            self.device, (self._lo, self._hi) = _mesh_place(
+                mesh, n, backend, device)
         self._impl = _impl(self.device)
         self.output = output
         self.backend = backend
@@ -1224,12 +1285,17 @@ class StreamPool:
         self.n = n
         self.block = int(block)
         self.sample_rate = self.sessions[0].sample_rate
+        # the sessions this rank owns (all n without a mesh): the host pass,
+        # the device tables and the carried rows cover these, in order
+        self._local = self.sessions[self._lo:self._hi]
+        nl = len(self._local)
         # the carried state, device-resident as the kernel's rows: sf f32
-        # [N, 24] (lp, b, c), si int32 [N, 5] (Q32 phase unused, seed, f32
+        # [nl, 24] (lp, b, c), si int32 [nl, 5] (Q32 phase unused, seed, f32
         # carrier phase, jitter phase bits, absolute jitter cell). All
         # sessions start at jitter position 0: state (0.0, 0).
-        self._sf = torch.zeros(n, 3 * NUM_FORMANTS, device=self.device)
-        self._si = torch.zeros(n, 5, dtype=torch.int32, device=self.device)
+        self._sf = torch.zeros(nl, 3 * NUM_FORMANTS, device=self.device)
+        self._si = torch.zeros(nl, 5, dtype=torch.int32, device=self.device)
+        self._ticks = {}              # {samples: the tick program}
         # upload caches: scores + offsets (any session revision) and the
         # lattice window + lat_base (content changes: first sizing, slides).
         # In steady state a tick re-launches on the same device tables with
@@ -1260,6 +1326,32 @@ class StreamPool:
         self._serve_captures = 0      # CUDA graphs captured
         for i, s in enumerate(self.sessions):
             s._pool_ref = (self, i)
+            s._ghost = not self._lo <= i < self._hi
+
+    @property
+    def local_sessions(self) -> range:
+        """The indices of the sessions this rank owns, whose rows every read
+        returns in this order: all n without a mesh."""
+        return range(self._lo, self._hi)
+
+    def _tick_program(self, blk: int):
+        """The tick of `blk` samples, (dev, sf, si) -> (audio in the pool's
+        output format, sf, si), cached per size: on a mesh
+        parallel.sharded_stream_tick_fn, else the pool's program. The same
+        callable runs read_blocks, serve_start's eager tick and the
+        captured served tick."""
+        tick = self._ticks.get(blk)
+        if tick is None:
+            if self.mesh is not None:
+                from ..parallel.sharded import sharded_stream_tick_fn
+
+                tick = sharded_stream_tick_fn(self.mesh, blk,
+                                              out_fmt=self.output)
+            else:
+                tick = functools.partial(_converted_tick, self._impl,
+                                         self._program, blk, self.output)
+            self._ticks[blk] = tick
+        return tick
 
     @property
     def _jstates(self):
@@ -1294,7 +1386,7 @@ class StreamPool:
         q = self._quiet
         if (q is not None and q[1] == blk and q[4] == self.pin_elems
                 and self._mut == self._quiet_mut
-                and self.sessions[0]._jitter_pos <= q[0]):
+                and self._local[0]._jitter_pos <= q[0]):
             return self._dev
         self._quiet = None
         dev = self._prepare_tick_full(blk)
@@ -1304,26 +1396,28 @@ class StreamPool:
 
     def _prepare_tick_full(self, blk: int) -> dict:
         """The full maintenance + upload pass behind _prepare_tick."""
+        local = self._local
         E = max(16, _bucket(self.pin_elems)) if self.pin_elems else 16
-        for s in self.sessions:
+        for s in local:
             s._ensure_audio_horizon(blk)
             s._rebase()
             s._maybe_rebase_jitter(blk)
             E = max(E, _bucket(len(s._elements)))
-        inc = float(self.sessions[0].voice.jitter_frequency)
+        inc = float(local[0].voice.jitter_frequency)
         cells = 16
-        for s in self.sessions:
+        for s in local:
             cells = max(cells, s._jitter_cells(blk))
-        # session-0-relative: all sessions advance in lockstep, but their
-        # absolute positions may differ after a session-level restore
-        self._quiet = (self.sessions[0]._jitter_pos
+        # relative to the first owned session: all sessions advance in
+        # lockstep, but their absolute positions may differ after a
+        # session-level restore
+        self._quiet = (local[0]._jitter_pos
                        + min(s._quiet_horizon(blk) - s._jitter_pos
-                             for s in self.sessions),
+                             for s in local),
                        blk, E, cells, self.pin_elems)
 
-        key = (E, tuple(s._rev for s in self.sessions),
-               tuple(id(s.voice) for s in self.sessions))
-        lat_key = (cells, tuple(s._lattice.version for s in self.sessions))
+        key = (E, tuple(s._rev for s in local),
+               tuple(id(s.voice) for s in local))
+        lat_key = (cells, tuple(s._lattice.version for s in local))
         if key == self._cache_key and lat_key == self._lat_key:
             return self._dev      # steady state: nothing to upload
         if lat_key != self._lat_key:
@@ -1341,13 +1435,14 @@ class StreamPool:
         (first sizing, a new cell count, many slides) everything uploads.
         While serving, the scatter goes into a copy of the tables: a set
         that was published may still be read by a queued served tick."""
+        local, nl = self._local, len(self._local)
         prev = self._lat_key
-        changed = ([i for i in range(self.n) if prev[1][i] != lat_key[1][i]]
+        changed = ([i for i in range(nl) if prev[1][i] != lat_key[1][i]]
                    if (prev is not None and self._lat_dev is not None
                        and prev[0] == cells) else None)
-        small = changed is not None and 0 < len(changed) <= min(8, self.n)
-        idx_list = changed if small else range(self.n)
-        sess = [self.sessions[i] for i in idx_list]
+        small = changed is not None and 0 < len(changed) <= min(8, nl)
+        idx_list = changed if small else range(nl)
+        sess = [local[i] for i in idx_list]
         for s in sess:
             s._lattice.ensure(cells)
         lat = JitterLattice(*(np.stack(f) for f in zip(
@@ -1366,8 +1461,7 @@ class StreamPool:
             self._lat_dev = tuple(rows)
             self._lat_base_dev = base
         # versions may have been bumped by ensure() just above
-        self._lat_key = (cells,
-                         tuple(s._lattice.version for s in self.sessions))
+        self._lat_key = (cells, tuple(s._lattice.version for s in local))
 
     def _upload_scores(self, E: int, key, inc: float) -> None:
         """Publish the score tables, the per-session jitter deltas (par)
@@ -1378,17 +1472,18 @@ class StreamPool:
         changes key[2] with no changed revision and rebuilds all. While
         serving, the scatter goes into a copy of the score tables, as in
         _upload_lattices."""
-        for s in self.sessions:
+        local, nl = self._local, len(self._local)
+        for s in local:
             if abs(s.voice.jitter_frequency - inc) >= 1e-9:
                 raise ValueError("pooled sessions must share a jitter rate")
         prev = self._cache_key
         same_struct = (self._dev is not None and prev is not None
                        and prev[0] == key[0])
-        changed = ([i for i in range(self.n) if prev[1][i] != key[1][i]]
+        changed = ([i for i in range(nl) if prev[1][i] != key[1][i]]
                    if same_struct else None)
-        small = changed is not None and 0 < len(changed) <= min(8, self.n)
-        idx_list = changed if small else range(self.n)
-        sess = [self.sessions[i] for i in idx_list]
+        small = changed is not None and 0 < len(changed) <= min(8, nl)
+        idx_list = changed if small else range(nl)
+        sess = [local[i] for i in idx_list]
         tabs = kf.score_tables(
             stack_scores([s._build_score(E) for s in sess]),
             _jparams([s.voice for s in sess], inc), self.sample_rate)
@@ -1411,14 +1506,16 @@ class StreamPool:
 
     def read_block(self, sync: bool = True):
         """Advance every session by one block: returns [N, block] audio
-        (numpy; the device tensor with sync=False)."""
+        (numpy; the device tensor with sync=False), on a mesh this rank's
+        rows [N/n_data, block]."""
         return self.read_blocks(1, sync=sync)
 
     def read_blocks(self, k: int = 1, sync: bool = True):
         """Advance every session by k blocks in ONE launch: returns [N,
-        k*block] audio. Read-ahead trades k*block of latency for one
-        launch and one host pass per k blocks; the state continues exactly
-        either way, so mixing k values is safe."""
+        k*block] audio (on a mesh this rank's rows). Read-ahead trades
+        k*block of latency for one launch and one host pass per k blocks;
+        the state continues exactly either way, so mixing k values is
+        safe."""
         if self._serving:
             raise RuntimeError("read_block() while serve mode is live would "
                                "race the real-time thread for the carried "
@@ -1426,14 +1523,11 @@ class StreamPool:
                                "first")
         blk = self.block * int(k)
         dev = self._prepare_tick(blk)
-        out, self._sf, self._si = _TICKS[self._program](
-            self._impl, dev, self._sf, self._si, blk)
+        out, self._sf, self._si = self._tick_program(blk)(dev, self._sf,
+                                                          self._si)
         dev["offsets"].add_(blk)       # advanced on the device
         # all sessions advance in lockstep: ONE pool-level lag integer
         self._lag_samples += blk
-        conv = _OUTPUTS[self.output]
-        if conv is not None:
-            out = conv(out)
         return out.cpu().numpy() if sync else out
 
     # -- depth-2 pipelined serving ----------------------------------------
@@ -1534,9 +1628,9 @@ class StreamPool:
             pub_key = (self._cache_key, self._lat_key)
             if pub_key == self._serve_pub_key:
                 return False                # steady state: nothing changed
-            off = torch.empty(self.n, dtype=torch.int32,
+            off = torch.empty(len(self._local), dtype=torch.int32,
                               pin_memory=self._impl == "kernel")
-            off.numpy()[:] = [s._consumed_samples for s in self.sessions]
+            off.numpy()[:] = [s._consumed_samples for s in self._local]
             swap = dict(dev={k: v for k, v in dev.items() if k != "offsets"},
                         off_host=off, snap_ticks=t_snap)
             if self._impl == "kernel":
@@ -1560,9 +1654,9 @@ class StreamPool:
             g.capture_begin(pool=self._serve_mempool,
                             capture_error_mode="thread_local")
             try:
-                out = _served_tick(self._impl, swap["dev"], self._sf,
-                                   self._si, self._serve_off, self.block,
-                                   _OUTPUTS[self.output], self._program)
+                out = _served_tick(self._tick_program(self.block),
+                                   swap["dev"], self._sf, self._si,
+                                   self._serve_off, self.block)
             finally:
                 g.capture_end()
         swap.update(graph=g, out=out)
@@ -1588,7 +1682,7 @@ class StreamPool:
             load_library()
             self._capture_stream = torch.cuda.Stream(self.device)
             self._serve_mempool = torch.cuda.graph_pool_handle()
-        self._serve_off = torch.zeros(self.n, dtype=torch.int32,
+        self._serve_off = torch.zeros(len(self._local), dtype=torch.int32,
                                       device=self.device)
         self._swap_pending = self._serve_cur = self._serve_pub_key = None
         self._serve_error = None
@@ -1599,10 +1693,9 @@ class StreamPool:
             if on_card:
                 with self._serve_lock:
                     dev = self._prepare_tick()
-                    _served_tick(self._impl, dev, self._sf.clone(),
-                                 self._si.clone(), dev["offsets"].clone(),
-                                 self.block, _OUTPUTS[self.output],
-                                 self._program)
+                    _served_tick(self._tick_program(self.block), dev,
+                                 self._sf.clone(), self._si.clone(),
+                                 dev["offsets"].clone(), self.block)
                     torch.cuda.synchronize(self.device)
             self._serve_build()             # the first publish
         except BaseException:
@@ -1640,7 +1733,8 @@ class StreamPool:
 
     def serve_tick(self) -> torch.Tensor:
         """Real-time dispatch: adopt the newest published set (if any) and
-        run one tick. Returns the [N, block] audio on the pool's device
+        run one tick. Returns the [N, block] audio (on a mesh this rank's
+        rows) on the pool's device
         (int16 with output='pcm16', uint8 with 'ulaw'), a tensor of its own
         that later ticks do not overwrite, as read_block(sync=False)
         returns: on a card the graph's output buffer is copied out after
@@ -1673,9 +1767,9 @@ class StreamPool:
                 kf.LAUNCHES[name] += 1                   # holds
             out = cur["out"].clone()
         else:
-            out = _served_tick(self._impl, cur["dev"], self._sf, self._si,
-                               self._serve_off, self.block,
-                               _OUTPUTS[self.output], self._program)
+            out = _served_tick(self._tick_program(self.block), cur["dev"],
+                               self._sf, self._si, self._serve_off,
+                               self.block)
         self._serve_ticks += 1
         return out
 
@@ -1714,6 +1808,9 @@ class StreamPool:
     # ONE payload captures all N sessions (rolling scores, counters, lattice
     # continuations) plus the stacked device state, fetched in one
     # device->host copy, with grail_tpu's keys: a JAX pool's blob loads here.
+    # On a mesh each rank packs the sessions it owns and save() gathers the
+    # packs over the mesh, on the caller's thread (serve mode refuses both
+    # calls, so no collective meets a serving thread's work).
 
     def save(self) -> bytes:
         if self._serving:
@@ -1726,10 +1823,18 @@ class StreamPool:
         if self._inflight is not None:
             self.drain()   # a checkpoint must not orphan an in-flight tick
         sf, si = self._sf.cpu().numpy(), self._si.cpu().numpy()
+        own = {}
+        for r, s in enumerate(self._local):
+            for k, v in s._payload_dict(_host_state(sf[r], si[r])).items():
+                own[f"s{self._lo + r}_{k}"] = v
         parts = {"pool_meta": np.array([self.n, self.block], np.int64)}
-        for i, s in enumerate(self.sessions):
-            for k, v in s._payload_dict(_host_state(sf[i], si[i])).items():
-                parts[f"s{i}_{k}"] = v
+        if self.mesh is None:
+            parts.update(own)
+        else:
+            from ..parallel.sharded import _row_objects
+
+            for row in _row_objects(own, self.mesh):   # in session order
+                parts.update(row)
         buf = io.BytesIO()
         np.savez(buf, **parts)
         return buf.getvalue()
@@ -1749,15 +1854,45 @@ class StreamPool:
             raise ValueError(
                 f"payload block={block}, pool block={self.block}")
         for i, s in enumerate(self.sessions):
-            s._apply_payload(z, prefix=f"s{i}_")
+            if s._ghost:        # its grammar state, for raising in step
+                key = f"s{i}_pending_cmd"
+                s._pending_cmd = (bytes(z[key]).decode() if key in z.files
+                                  else "")
+            else:
+                s._apply_payload(z, prefix=f"s{i}_")
         # one stacked state replaces the whole device state; the carried
         # jitter states were rebuilt from the restored counters
-        self._sf = torch.cat([s._sf for s in self.sessions]).to(self.device)
-        self._si = torch.cat([s._si for s in self.sessions]).to(self.device)
+        self._sf = torch.cat([s._sf for s in self._local]).to(self.device)
+        self._si = torch.cat([s._si for s in self._local]).to(self.device)
         self._cache_key = None
         self._lat_key = None
         self._inflight = None
         self._quiet = None
+
+
+def _mesh_place(mesh, n: int, backend: str, device):
+    """A mesh pool's device and the range of sessions this rank owns,
+    after grail_tpu's mesh rules (a fused backend, n divisible by the
+    'data' axis) and the device's: the mesh's, which an explicit `device`
+    must name."""
+    from ..parallel.sharded import _mesh_device, _shard
+
+    sh = _shard(mesh)
+    if _BACKENDS[backend] != "fused":
+        raise ValueError("a mesh-sharded StreamPool needs the fused tick "
+                         f"(backend {backend!r}; a block that is not a "
+                         f"multiple of {kf.CHUNK} selects 'xla')")
+    if n % sh.n_data:
+        raise ValueError(f"n={n} sessions must divide over the mesh's "
+                         f"'data' axis ({sh.n_data})")
+    dev = _resolve_device(_mesh_device(mesh))
+    if device is not None:
+        want = torch.device(device)
+        if want.type != dev.type or want.index not in (None, dev.index):
+            raise ValueError(f"device={want} disagrees with the mesh's "
+                             f"device {dev}")
+    k = n // sh.n_data
+    return dev, (sh.d * k, (sh.d + 1) * k)
 
 
 __all__ = ["StreamSession", "StreamPool", "ulaw_decode"]

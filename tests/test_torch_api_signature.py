@@ -41,6 +41,8 @@ PAIRS = [(name, getattr(japi, name), getattr(papi, name))
      psharded.synthesize_block_sp),
     ("sharded_pipeline", jsharded.sharded_pipeline,
      psharded.sharded_pipeline),
+    ("sharded_stream_tick_fn", jsharded.sharded_stream_tick_fn,
+     psharded.sharded_stream_tick_fn),
     ("transcribe", jtranscribe, ptranscribe),
 ] + [(name, getattr(jnative, name), getattr(pnative, name))
      for name in ("native_transcribe", "native_drift_boundaries",

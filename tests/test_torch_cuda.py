@@ -929,6 +929,55 @@ def test_a_failed_capture_raises_and_publishes_nothing(cuda, monkeypatch):
     pool.serve_stop()
 
 
+def test_one_rank_mesh_pool_equals_the_pool_on_the_card(cuda, tmp_path):
+    # StreamPool(mesh=) on a one-rank mesh (gloo, so no second process):
+    # one carry launch a tick, its reads, save() and served ticks equal to
+    # the unsharded pool's (chip_smoke.py phase 19 runs the shared-card
+    # meshes at full width)
+    import io
+
+    import torch.distributed as dist
+
+    from grail_tpu_torch.parallel import make_mesh
+    from grail_tpu_torch.runtime.stream import StreamPool
+
+    def mk(**kw):
+        pool = StreamPool(6, voice="plain", language="english", pin_elems=64,
+                          **kw)
+        for i in range(6):
+            pool.feed(i, _SERVE_TEXTS[i % len(_SERVE_TEXTS)],
+                      parse_commands=True)
+        pool.flush()
+        return pool
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        sharded, ref = mk(mesh=make_mesh(1, 1, "cuda")), mk()
+        assert sharded.device == torch.device(
+            "cuda", torch.cuda.current_device())      # the mesh's device
+        assert sharded.local_sessions == range(6)
+        n0 = kf.LAUNCHES["fused_synth_carry"]
+        got = [sharded.read_block(sync=False) for _ in range(4)]
+        assert kf.LAUNCHES["fused_synth_carry"] == n0 + 4
+        for a in got:
+            assert torch.equal(a, ref.read_block(sync=False))
+        za, zb = (np.load(io.BytesIO(p.save())) for p in (sharded, ref))
+        assert za.files == zb.files
+        for k in za.files:
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+        for p in (sharded, ref):
+            p.serve_start(period=9999)
+        try:
+            for _ in range(4):
+                assert torch.equal(sharded.serve_tick(), ref.serve_tick())
+        finally:
+            for p in (sharded, ref):
+                p.serve_stop()
+    finally:
+        dist.destroy_process_group()
+
+
 # ---- the host_track mode (the solo long-form route) and the FP32 probe -----
 
 @pytest.mark.parametrize("S", [1, 4], ids=["unsplit", "split4"])

@@ -422,7 +422,7 @@ def test_pool_session_checkpoint_restore():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "later slice"),
+    (dict(mesh=object()), "make_mesh"),       # not a mesh
     (dict(output="wat"), "output"),
     (dict(backend="pallas"), "backend"),
 ])
