@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from .languages import get_language
+from .runtime.trace import annotate, span
 from .core.constants import LEHMER_A
 from .core.rng import MASK32, lehmer_skip
 from .synth.elem import SynthesisElem
@@ -472,7 +473,7 @@ def _split_sched(inc, T: int, S: int, device):
 
 
 def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc,
-                 track=None):
+                 track=None, sched=None):
     """The fused synthesizer's inputs for the split of B utterances of T
     samples (T % (S * BLOCK_SIZE) == 0) into S*B lanes of Ts + W samples:
     (tables tiled s-major, segment schedule rows (phi, cell) [S, Ts + W],
@@ -481,12 +482,13 @@ def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc,
     (`impl`) integrates the Q32 phase to every block boundary; segment 0
     starts at phase 0. With a carrier `track` (one utterance) the segments
     read their phases from it (`_split_carrier`): the pre-pass is not
-    launched and the Q32 phases are zero."""
+    launched and the Q32 phases are zero. `sched` is `_split_sched(inc, T,
+    S, device)` where the caller has built it already."""
     if S < 2 or T % (S * BLOCK_SIZE):
         raise ValueError(f"need S >= 2 and T % (S*{BLOCK_SIZE}) == 0, got "
                          f"S={S}, T={T}")
     B = tables.n.shape[0]
-    pre, seg = _split_sched(inc, T, S, tables.n.device)
+    pre, seg = sched or _split_sched(inc, T, S, tables.n.device)
     g0, seed_lane, tables_t, g0_lane = _split_lane_setup(tables, T, S)
     state = SynthState.init(S * B, tables.n.device)._replace(seed=seed_lane)
     if track is not None:
@@ -507,12 +509,12 @@ def _reassemble(full: torch.Tensor, B: int, T: int, S: int) -> torch.Tensor:
 
 
 def _split_program(tables: FusedTables, T: int, S: int, impl: str,
-                   inc, track=None) -> torch.Tensor:
+                   inc, track=None, sched=None) -> torch.Tensor:
     """Overlap-save split over B utterances of T samples: the fused
     synthesizer over the S*B lanes of `_split_lanes`, reassembled.
     Returns audio [B, T]."""
     tables_t, seg, state, q, g0, car = _split_lanes(tables, T, S, impl, inc,
-                                                    track)
+                                                    track, sched)
     full, _ = synth_fused(tables_t, T // S + WARMUP, impl, state=state,
                           sched=seg, phase_q32=q, g0=g0, carrier=car)
     return _reassemble(full, tables.n.shape[0], T, S)
@@ -737,12 +739,13 @@ class _Batch:
         (jitter rate, jdf, jdff, jda), each delta one value, or a list of
         one per utterance when the voices differ."""
         v0, voices = self.v0, self.voices
-        lat_cache = {}
-        for sd in self.seeds:
-            if sd not in lat_cache:
-                lat_cache[sd] = build_lattice(sd, T, v0.jitter_frequency)
-        lattices = JitterLattice(*(np.stack(f) for f in zip(
-            *(lat_cache[sd] for sd in self.seeds))))
+        with span("lattices"):
+            lat_cache = {}
+            for sd in self.seeds:
+                if sd not in lat_cache:
+                    lat_cache[sd] = build_lattice(sd, T, v0.jitter_frequency)
+            lattices = JitterLattice(*(np.stack(f) for f in zip(
+                *(lat_cache[sd] for sd in self.seeds))))
         if any(v is not v0 for v in voices):
             jparams = (v0.jitter_frequency,
                        [v.jitter_delta_frequency for v in voices],
@@ -757,8 +760,9 @@ class _Batch:
     def tables(self, T: int, dev) -> FusedTables:
         """Lattices for T samples and the kernel tables, on `dev`."""
         lattices, jparams = self.jitter(T)
-        return build_tables(stack_scores(self.scores), lattices, jparams,
-                            self.sr, device=dev)
+        with span("tables"):
+            return build_tables(stack_scores(self.scores), lattices, jparams,
+                                self.sr, device=dev)
 
     def core_lanes(self, T: int, dev) -> _CoreLanes:
         """The core program's inputs for T samples, on `dev`."""
@@ -800,14 +804,18 @@ class _Batch:
                                impl))
             return [audio[i, :n] for i, n in enumerate(self.Ns)]
         tables = self.tables(T, dev)
-        if S > 1:
-            audio = _split_program(tables, T, S, impl, inc, track)
-        else:
-            car = None if track is None else _pad_track(track, T, dev)
-            audio, _ = synth_fused(tables, T, impl,
-                                   sched=device_window(inc, 0, T, dev),
-                                   exact_carrier=carrier == "kcar",
-                                   carrier=car)
+        with span("schedule"):
+            sched = (_split_sched(inc, T, S, dev) if S > 1
+                     else device_window(inc, 0, T, dev))
+        with span("launch"):
+            if S > 1:
+                audio = _split_program(tables, T, S, impl, inc, track,
+                                       sched=sched)
+            else:
+                car = None if track is None else _pad_track(track, T, dev)
+                audio, _ = synth_fused(tables, T, impl, sched=sched,
+                                       exact_carrier=carrier == "kcar",
+                                       carrier=car)
         return [audio[i, :n] for i, n in enumerate(self.Ns)]
 
 
@@ -868,13 +876,22 @@ def synthesize_scores(scores: Sequence[Score], voice="generic",
     carrier phase tracks (oracle/native.native_carrier_phase_track), read
     for one utterance on the fused, xla and scan backends, where a track
     takes precedence over `exact_carrier` (and keeps the fused split)."""
-    scores = list(scores)
+    with span("prep"):
+        return _synthesize_scores(list(scores), voice, seeds, backend,
+                                  carrier_tracks, exact_carrier, device)
+
+
+def _synthesize_scores(scores: list, voice, seeds, backend, carrier_tracks,
+                       exact_carrier, device) -> List[torch.Tensor]:
+    """synthesize_scores inside its caller's `prep` span, which takes the
+    route's carrier, S and T."""
     if not scores:
         return []
     b = _Batch(scores, voice, seeds)
     track = _applicable_track(carrier_tracks, b.B, backend)
     impl, carrier, S, T = route(b.B, max(b.Ns), exact_carrier, device, b.sr,
                                 backend, track=track is not None)
+    annotate(carrier=carrier, S=S, T=T)
     return b.run(impl, carrier, S, T, torch.device(device),
                  _check_backend(backend), track)
 
@@ -911,6 +928,17 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
             "texts must be a sequence of strings, not a single string — "
             "synthesize_batch('hello') would synthesize one utterance per "
             "CHARACTER; use synthesize(text) or pass [text]")
+    with span("batch", B=len(texts)):
+        return _synthesize_batch(texts, voice, language, seeds, contour,
+                                 speaking_rate, sample_rate, use_scan,
+                                 backend, exact_carrier, device)
+
+
+def _synthesize_batch(texts, voice, language, seeds, contour, speaking_rate,
+                      sample_rate, use_scan, backend, exact_carrier, device
+                      ) -> List[torch.Tensor]:
+    """synthesize_batch inside its `batch` span, which so also covers the
+    release of the call's host objects (the frontend's, ~1 ms at B = 64)."""
     B = len(texts)
     if B == 0:
         return []
@@ -930,18 +958,19 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
         backend = "scan"
     _check_backend(backend)
 
-    pelems_all = [text_to_phoneme_elems(t, v, lng, contour=contour,
-                                        speaking_rate=speaking_rate)
-                  for t, v, lng in zip(texts, voices, languages_)]
-    scores = [score_from_phoneme_elems(p, v)
-              for p, v in zip(pelems_all, voices)]
-    tracks = None
-    if B == 1:
-        tracks = [_solo_carrier_track(pelems_all[0], voices[0], seeds[0],
-                                      exact_carrier, backend)]
-    return synthesize_scores(scores, voices, seeds=seeds,
-                             exact_carrier=exact_carrier, device=device,
-                             backend=backend, carrier_tracks=tracks)
+    with span("frontend"):
+        pelems_all = [text_to_phoneme_elems(t, v, lng, contour=contour,
+                                            speaking_rate=speaking_rate)
+                      for t, v, lng in zip(texts, voices, languages_)]
+        scores = [score_from_phoneme_elems(p, v)
+                  for p, v in zip(pelems_all, voices)]
+    with span("prep"):
+        tracks = None
+        if B == 1:
+            tracks = [_solo_carrier_track(pelems_all[0], voices[0],
+                                          seeds[0], exact_carrier, backend)]
+        return _synthesize_scores(scores, voices, seeds, backend, tracks,
+                                  exact_carrier, device)
 
 
 def _solo_carrier_track(pelems, v: Voice, seed: int, exact_carrier,

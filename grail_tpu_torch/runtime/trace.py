@@ -1,0 +1,131 @@
+"""Spans of one `synthesize_batch` call, on the host clock and the profiler's.
+
+How to see them: run the calls under `torch.profiler.profile` (CPU and,
+on a card, CUDA activities), export the Chrome trace
+(`prof.export_chrome_trace(path)`) and open it in Perfetto or
+chrome://tracing. Each span is a `grail.<name>` row on the calling thread,
+above the device rows, so a gap on the device lines up with the host stage
+that left it; on a card the profiler also draws the innermost span over the
+device operations it launched (`tables`' upload, `launch`'s kernels).
+Nothing is recorded while no profiler records, nor on a thread the
+profiler does not follow (it follows the thread that started it): `span`
+then costs one check and hands back a shared no-op context.
+
+The spans of the batch path (`api.py`), at most seven a call:
+
+  * `batch`     `synthesize_batch`, the whole call (attribute `B`);
+  * `frontend`  its host frontend: `text_to_phoneme_elems` and
+                `score_from_phoneme_elems` over the texts (those functions
+                called on their own record nothing);
+  * `prep`      the frontend's end to the call's return: `synthesize_scores`
+                (padding, `route`, the program, the output slices), with the
+                route's `carrier`, `S` and `T`; a root of its own when
+                `synthesize_scores` is called directly;
+  * `lattices`  in `prep`: the jitter lattices, one `build_lattice` a seed;
+  * `tables`    in `prep`: `build_tables`, the host tables and their upload;
+  * `schedule`  in `prep`: the jitter schedule's window on the device
+                (`device_window`; `hit` says whether its cache held it);
+  * `launch`    in `prep`: the program's enqueue (`synth_fused`, or the
+                split's lanes, kernel 2's pre-pass and kernel 1).
+
+The fused backend opens all four of `prep`'s spans; the core, xla and scan
+backends only `lattices`.
+
+Besides the profiler's rows, each span is kept in a bounded buffer as a
+`Span`: the call it belongs to (every span under one root shares the root's
+call id), its name, its parent's name (None for a root), its start and end
+(`time.perf_counter_ns`) and its attributes. `spans()` copies the buffer
+and `clear()` empties it; the oldest spans fall out past `MAXLEN`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+import time
+from collections import deque
+from typing import NamedTuple, Optional
+
+import torch
+
+MAXLEN = 1 << 16      # spans kept (a 51-s window of 64-text calls holds ~2k)
+PREFIX = "grail."
+
+_recording = torch.autograd._profiler_enabled
+_buffer: deque = deque(maxlen=MAXLEN)
+_local = threading.local()
+_calls = itertools.count(1)
+_OFF = contextlib.nullcontext()
+
+
+class Span(NamedTuple):
+    call: int
+    name: str
+    parent: Optional[str]
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+class _Open:
+    """One open span: a profiler range and its in-memory record."""
+
+    __slots__ = ("name", "attrs", "call", "parent", "_range", "_start")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = _stack()
+        if stack:
+            self.call, self.parent = stack[-1].call, stack[-1].name
+        else:
+            self.call, self.parent = next(_calls), None
+        stack.append(self)
+        self._range = torch.profiler.record_function(PREFIX + self.name)
+        self._range.__enter__()
+        self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self._range.__exit__(*exc)
+        _stack().pop()
+        _buffer.append(Span(self.call, self.name, self.parent, self._start,
+                            end, self.attrs))
+        return False
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def span(name: str, **attrs):
+    """A context that records the span `name` while a profiler records, and
+    does nothing otherwise."""
+    if not _recording():
+        return _OFF
+    return _Open(name, attrs)
+
+
+def annotate(**attrs):
+    """Add attributes to the innermost span open on this thread, if any."""
+    stack = getattr(_local, "stack", None)
+    if stack:
+        stack[-1].attrs.update(attrs)
+
+
+def spans() -> list:
+    """The recorded spans, oldest first (a copy)."""
+    return list(_buffer)
+
+
+def clear():
+    _buffer.clear()
+
+
+__all__ = ["MAXLEN", "Span", "annotate", "clear", "span", "spans"]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..runtime.native import native_jitter_schedule
+from ..runtime.trace import annotate
 
 _CHK = 1 << 20        # checkpoint cadence (samples)
 _SEG = 1 << 16        # longest run _np_simulate accumulates in one call
@@ -181,11 +182,13 @@ _DEVICE_CACHE_MAX = 64
 
 def device_window(inc, start: int, length: int, device):
     """(phi f32 [length], cell int32 [length]) tensors on `device` for
-    samples start+1 .. start+length, memoized per device."""
+    samples start+1 .. start+length, memoized per device. Tells the span
+    open on this thread, if any, whether the memo held them (`hit`)."""
     device = torch.device(device)
     key = (float(np.float32(inc)), int(start), int(length), str(device))
     with _device_lock:
         hit = _device_cache.get(key)
+    annotate(hit=hit is not None)
     if hit is not None:
         return hit
     phi, cell = get_schedule(inc).window(start, length)
