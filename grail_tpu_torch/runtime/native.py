@@ -2,16 +2,17 @@
 
 Counterpart of grail_tpu/runtime/native.py and of the ctypes half of
 grail_tpu/oracle/native.py. The library is the repository's C++ host tier,
-native/grail_native.cpp (transcriber, drift simulation, WAV encoder) and
-native/grail_oracle.cpp (the oracle's DSP chain, the carrier phase track,
-the jitter phase schedule). Where the JAX package looks for a library that
-someone built with `make -C native` and carries on without it, this loader
-builds it itself, from those sources, with the host compiler ($CXX, else
-g++) and the Makefile's flags, into build/grail_tpu_torch/ under a name
-that hashes both sources and the flags: an edit to either is rebuilt, a
-stale library is never loaded, and nothing is written into native/. A
-failed build raises with the compiler's output; no binding returns None
-and no caller carries on without the library.
+native/grail_native.cpp (transcriber, the stepwise drift countdown, WAV
+encoder) and native/grail_oracle.cpp (the oracle's DSP chain, the carrier
+phase track, the jitter phase schedule), and the port's own
+runtime/csrc/drift.cpp (the drift countdown in closed form). Where the JAX
+package looks for a library that someone built with `make -C native` and
+carries on without it, this loader builds it itself, from those sources,
+with the host compiler ($CXX, else g++) and the Makefile's flags, into
+build/grail_tpu_torch/ under a name that hashes every source and the flags:
+an edit to any is rebuilt, a stale library is never loaded, and nothing is
+written into native/. A failed build raises with the compiler's output; no
+binding returns None and no caller carries on without the library.
 
 -ffp-contract=off is what the bit-exact twins rest on: every float32
 operation of the oracle chain, the carrier recurrence, the drift countdown
@@ -20,11 +21,13 @@ and the jitter phase rounds on its own, as numpy's does.
 Bound here, with grail_tpu's names and signatures:
   * the host frontend's three loops: `native_transcribe` (`NativeRuleset`,
     gn_transcribe), behind text/transcribe.transcribe;
-    `native_drift_boundaries` (gn_drift_boundaries2), behind
-    synth/score._reference_boundary_samples; `native_jitter_schedule`
+    `native_drift_boundaries` (gt_drift_boundaries, the closed form),
+    behind synth/score._reference_boundary_samples; `native_jitter_schedule`
     (gn_jitter_phase_schedule), behind synth/schedule._simulate. Each is
     bit-equal to the Python or numpy version beside its caller, which
-    stays as the tests' other side;
+    stays as the tests' other side; so is
+    `native_drift_boundaries_stepwise` (gn_drift_boundaries2, one float32
+    subtract a sample), kept as the closed form's other side;
   * the carrier phase track and the oracle DSP chain (oracle/native.py
     marshals their arguments) and the WAV encoder.
 ctypes releases the GIL for the length of each foreign call.
@@ -46,9 +49,12 @@ import numpy as np
 from ..synth._build import BUILD_DIR
 from ..text.language import Language
 from ..text.phonemes import Phoneme
+from .trace import tally
 
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-SOURCES = ("grail_native.cpp", "grail_oracle.cpp")
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+SOURCES = (NATIVE_DIR / "grail_native.cpp", NATIVE_DIR / "grail_oracle.cpp",
+           CSRC_DIR / "drift.cpp")
 # native/Makefile's flags (without its warnings)
 CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-ffp-contract=off"]
 
@@ -62,11 +68,10 @@ def _compiler() -> str:
 
 
 def _tag() -> str:
-    """Hash of both sources (names and bytes) and the flags."""
+    """Hash of the sources (names and bytes) and the flags."""
     h = hashlib.sha256(" ".join(CXXFLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode() + b"\0" + (NATIVE_DIR / name).read_bytes()
-                 + b"\0")
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     return h.hexdigest()[:16]
 
 
@@ -81,7 +86,7 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.parent / f"{out.stem}.{os.getpid()}.tmp"
     cmd = [_compiler(), *CXXFLAGS, "-shared", "-o", str(tmp),
-           *(str(NATIVE_DIR / name) for name in SOURCES)]
+           *(str(src) for src in SOURCES)]
     t0 = time.perf_counter()
     try:
         try:
@@ -129,10 +134,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gn_transcribe.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                   ctypes.c_int32, ctypes.c_int32, i32p,
                                   ctypes.c_int32]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    drift = [f32p, ctypes.c_int64, ctypes.c_float, ctypes.c_float, i64p,
+             f32p]
     lib.gn_drift_boundaries2.restype = ctypes.c_int64
-    lib.gn_drift_boundaries2.argtypes = [
-        f32p, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
-        ctypes.POINTER(ctypes.c_int64), f32p]
+    lib.gn_drift_boundaries2.argtypes = drift
+    lib.gt_drift_boundaries.restype = ctypes.c_int64
+    lib.gt_drift_boundaries.argtypes = drift + [i64p]
     lib.gn_jitter_phase_schedule.restype = ctypes.c_int64
     lib.gn_jitter_phase_schedule.argtypes = [
         ctypes.c_float, ctypes.c_float, ctypes.c_int64, f32p, i32p]
@@ -254,24 +262,18 @@ def native_encode_wav(data: np.ndarray, sample_rate: int) -> bytes:
     return out[:n].tobytes()
 
 
-def native_drift_boundaries(lengths: np.ndarray, sample_rate: float,
-                            t0: float = 0.0):
-    """Reference-sequencer drift simulation (gn_drift_boundaries2): element
-    end-samples of the per-sample f32 countdown, bit-equal to the numpy twin
-    synth/score._reference_boundary_samples_np. Returns (counts_cum int64
-    [E], residuals f32 [E]); raises ValueError on a NaN element and on one
-    that stalls the countdown, as the twin does."""
-    lib = load_library()
+def _drift(fn, lengths, sample_rate, t0, *extra):
     lengths = np.ascontiguousarray(lengths, np.float32)
     e = len(lengths)
     counts = np.empty(e, np.int64)
     residuals = np.empty(e, np.float32)
     if e:
-        stall = lib.gn_drift_boundaries2(
+        stall = fn(
             lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), e,
             float(sample_rate), float(t0),
             counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            residuals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+            residuals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            *extra)
         if stall >= 0:
             bad = float(lengths[stall])
             if np.isnan(bad):
@@ -283,6 +285,35 @@ def native_drift_boundaries(lengths: np.ndarray, sample_rate: float,
                 "countdown (dt is below half an ulp); the reference "
                 "sequencer would never advance past it — split the element")
     return counts, residuals
+
+
+def native_drift_boundaries(lengths: np.ndarray, sample_rate: float,
+                            t0: float = 0.0):
+    """Reference-sequencer drift simulation in closed form
+    (gt_drift_boundaries, runtime/csrc/drift.cpp: a float32 binade at a
+    time, a few explicit steps an element): element end-samples of the
+    per-sample f32 countdown, bit-equal to the stepwise loop
+    (native_drift_boundaries_stepwise) and the numpy twin
+    synth/score._reference_boundary_samples_np. Returns (counts_cum int64
+    [E], residuals f32 [E]); raises ValueError on a NaN element and on one
+    that stalls the countdown, as the twin does. Adds its explicit steps
+    and the samples it counted to the innermost open span (trace.tally:
+    `drift_steps`, `drift_samples`), if any."""
+    steps = ctypes.c_int64(0)
+    counts, residuals = _drift(load_library().gt_drift_boundaries, lengths,
+                               sample_rate, t0, ctypes.byref(steps))
+    tally(drift_steps=steps.value,
+          drift_samples=int(counts[-1]) if len(counts) else 0)
+    return counts, residuals
+
+
+def native_drift_boundaries_stepwise(lengths: np.ndarray,
+                                     sample_rate: float, t0: float = 0.0):
+    """native_drift_boundaries through gn_drift_boundaries2
+    (native/grail_native.cpp): one dependent float32 subtract per audio
+    sample. The closed form's other side in the tests."""
+    return _drift(load_library().gn_drift_boundaries2, lengths, sample_rate,
+                  t0)
 
 
 def native_jitter_schedule(inc, phase0, T: int, phi: np.ndarray,
@@ -305,4 +336,5 @@ def native_jitter_schedule(inc, phase0, T: int, phi: np.ndarray,
 __all__ = ["NATIVE_DIR", "SOURCES", "CXXFLAGS", "build", "build_info",
            "load_library", "available", "NativeRuleset",
            "native_transcribe", "native_encode_wav",
-           "native_drift_boundaries", "native_jitter_schedule"]
+           "native_drift_boundaries", "native_drift_boundaries_stepwise",
+           "native_jitter_schedule"]

@@ -16,7 +16,10 @@ The spans of the batch path (`api.py`), at most seven a call:
   * `batch`     `synthesize_batch`, the whole call (attribute `B`);
   * `frontend`  its host frontend: `text_to_phoneme_elems` and
                 `score_from_phoneme_elems` over the texts (those functions
-                called on their own record nothing);
+                called on their own record nothing), with the drift
+                countdown's `drift_steps` (explicit float32 steps) and
+                `drift_samples` (samples counted), which
+                `native.native_drift_boundaries` adds up over the texts;
   * `prep`      the frontend's end to the call's return: `synthesize_scores`
                 (padding, `route`, the program, the output slices), with the
                 route's `carrier`, `S` and `T`; a root of its own when
@@ -119,6 +122,16 @@ def annotate(**attrs):
         stack[-1].attrs.update(attrs)
 
 
+def tally(**counts):
+    """Add counts to the attributes of the innermost span open on this
+    thread, if any (an attribute not set yet starts at 0)."""
+    stack = getattr(_local, "stack", None)
+    if stack:
+        attrs = stack[-1].attrs
+        for key, n in counts.items():
+            attrs[key] = attrs.get(key, 0) + n
+
+
 def spans() -> list:
     """The recorded spans, oldest first (a copy)."""
     return list(_buffer)
@@ -128,4 +141,4 @@ def clear():
     _buffer.clear()
 
 
-__all__ = ["MAXLEN", "Span", "annotate", "clear", "span", "spans"]
+__all__ = ["MAXLEN", "Span", "annotate", "clear", "span", "spans", "tally"]

@@ -78,9 +78,11 @@ class Score(NamedTuple):
 def _reference_boundary_samples(lengths, sample_rate: float,
                                 t0: float = 0.0):
     """Exact element end-samples of the reference's f32 countdown, from the
-    native loop (runtime/native.native_drift_boundaries: gn_drift_boundaries2
-    in native/grail_native.cpp), bit-equal to the numpy twin below, which
-    stays as the tests' other side. Returns (cumulative end samples [E]
+    native closed form (runtime/native.native_drift_boundaries:
+    gt_drift_boundaries in runtime/csrc/drift.cpp, a float32 binade at a
+    time), bit-equal to the stepwise loop
+    (native_drift_boundaries_stepwise) and to the numpy twin below, which
+    stay as the tests' other side. Returns (cumulative end samples [E]
     int64, residuals [E] f32)."""
     return native_drift_boundaries(np.asarray(lengths, np.float32),
                                    sample_rate, t0)

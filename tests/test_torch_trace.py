@@ -12,7 +12,9 @@ import torch
 import grail_tpu_torch as g
 from grail_tpu_torch import api as papi
 from grail_tpu_torch.runtime import trace
-from grail_tpu_torch.synth.score import score_from_phoneme_elems
+from grail_tpu_torch.synth.score import (_reference_boundary_samples_np,
+                                         merge_glides,
+                                         score_from_phoneme_elems)
 
 torch.set_num_threads(2)
 PREP_CHILDREN = {"lattices", "tables", "schedule", "launch"}
@@ -151,3 +153,21 @@ def test_the_buffer_keeps_the_newest_spans_up_to_its_bound():
     got = trace.spans()
     assert len(got) == trace.MAXLEN
     assert got[0].attrs["i"] == 10 and got[-1].attrs["i"] == trace.MAXLEN + 9
+
+
+def test_the_frontend_counts_the_drift_countdowns_steps(no_launch):
+    texts = ["hello there.", "how are you today?", "the quick brown fox."]
+    prof, _ = profiled(lambda: g.synthesize_batch(
+        texts, voice="plain", language="english", device="cpu"))
+    attrs = _by_name(trace.spans())["frontend"].attrs
+    v = papi._resolve_voice("plain")
+    samples = sum(int(_reference_boundary_samples_np(
+        [pe.length for pe in merge_glides(papi.text_to_phoneme_elems(
+            t, v, "english"))], v.sample_rate)[0][-1]) for t in texts)
+    assert attrs["drift_samples"] == samples > 3 * 44100
+    assert 0 < attrs["drift_steps"] < 0.01 * attrs["drift_samples"]
+    # without a profiler the countdown still runs, and nothing is recorded
+    trace.clear()
+    g.synthesize_batch(texts, voice="plain", language="english",
+                       device="cpu")
+    assert trace.spans() == []
