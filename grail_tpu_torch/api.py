@@ -360,23 +360,27 @@ def _carrier_track_for(pelems, v: Voice, seed: int) -> Optional[np.ndarray]:
     the last 32 utterances. None only when the voice has no registered spec
     (`_spec_for_voice`); the caller then gets the in-kernel recurrence, and
     `route` says so. The host library is built at first use; a failed build
-    raises."""
+    raises. The look-up and the pre-pass run in the span `track`, with the
+    track's length (`samples`) and whether the memo held it (`hit`)."""
     from .oracle.native import native_carrier_phase_track
 
     spec = _spec_for_voice(v)
     if spec is None:
         return None
-    key_parts = [f"{p.phoneme.value}:{p.length!r}:{p.blend_length!r}:"
-                 f"{p.frequency!r}" for p in pelems]
-    key_parts.append(f"{spec.name}:{spec.sample_rate}:{int(seed)}")
-    key = hashlib.sha256("|".join(key_parts).encode()).hexdigest()
-    hit = _carrier_cache.get(key)
-    if hit is not None:
-        return hit
-    track = native_carrier_phase_track(pelems, spec, jitter_seed=int(seed))
-    if len(_carrier_cache) >= 32:
-        _carrier_cache.clear()
-    _carrier_cache[key] = track
+    with span("track"):
+        key_parts = [f"{p.phoneme.value}:{p.length!r}:{p.blend_length!r}:"
+                     f"{p.frequency!r}" for p in pelems]
+        key_parts.append(f"{spec.name}:{spec.sample_rate}:{int(seed)}")
+        key = hashlib.sha256("|".join(key_parts).encode()).hexdigest()
+        track = _carrier_cache.get(key)
+        hit = track is not None
+        if not hit:
+            track = native_carrier_phase_track(pelems, spec,
+                                               jitter_seed=int(seed))
+            if len(_carrier_cache) >= 32:
+                _carrier_cache.clear()
+            _carrier_cache[key] = track
+        annotate(hit=hit, samples=len(track))
     return track
 
 

@@ -11,7 +11,7 @@ Nothing is recorded while no profiler records, nor on a thread the
 profiler does not follow (it follows the thread that started it): `span`
 then costs one check and hands back a shared no-op context.
 
-The spans of the batch path (`api.py`), at most seven a call:
+The spans of the batch path (`api.py`), at most eight a call:
 
   * `batch`     `synthesize_batch`, the whole call (attribute `B`);
   * `frontend`  its host frontend: `text_to_phoneme_elems` and
@@ -24,6 +24,10 @@ The spans of the batch path (`api.py`), at most seven a call:
                 (padding, `route`, the program, the output slices), with the
                 route's `carrier`, `S` and `T`; a root of its own when
                 `synthesize_scores` is called directly;
+  * `track`     in `prep`, for one utterance that takes the host carrier
+                track (`api._carrier_track_for`): the memo's look-up and, on
+                a miss, the native pre-pass, with the track's `samples` and
+                `hit` (whether the memo held it);
   * `lattices`  in `prep`: the jitter lattices, one `build_lattice` a seed;
   * `tables`    in `prep`: `build_tables`, the host tables and their upload;
   * `schedule`  in `prep`: the jitter schedule's window on the device
