@@ -1194,15 +1194,17 @@ def long_form(card, dev, drive, check):
           f"{' '.join(rnat.CXXFLAGS)})", flush=True)
     spec = get_spec(LONG_VOICE)
     pel = g.text_to_phoneme_elems(TRACK_CHECK_TEXT, LONG_VOICE, LONG_LANGUAGE)
-    nat = onat.native_carrier_phase_track(pel, spec, 0)
     ref = onat.carrier_phase_track_reference(pel, spec, 0)
-    if nat.shape != ref.shape or not np.array_equal(nat.view(np.uint32),
-                                                    ref.view(np.uint32)):
-        raise AssertionError("[13] the native carrier track differs from "
-                             "its plain version")
+    for name, nat in (
+            ("the oracle's", onat.native_carrier_phase_track(pel, spec, 0)),
+            ("the port's", rnat.native_carrier_track(pel, spec, 0))):
+        if nat.shape != ref.shape or not np.array_equal(
+                nat.view(np.uint32), ref.view(np.uint32)):
+            raise AssertionError(f"[13] {name} native carrier track differs "
+                                 "from its plain version")
     print(f"[13 native] carrier track of {TRACK_CHECK_TEXT!r} "
-          f"({len(nat)} samples): native pre-pass bit-equal to the plain "
-          f"numpy version", flush=True)
+          f"({len(ref)} samples): the oracle's and the port's native "
+          f"pre-pass bit-equal to the plain numpy version", flush=True)
 
     voice = g.get_voice(LONG_VOICE)
     sr, inc = float(voice.sample_rate), voice.jitter_frequency

@@ -54,7 +54,7 @@ stays unsplit; the split is reached there through `_synthesize_split`.
 The solo long-form route: for one utterance past EXACT_CARRIER_AUTO_SECONDS
 (or with exact_carrier=True) `synthesize`/`synthesize_batch` run the native
 carrier pre-pass on the host (`_carrier_track_for`: the reference's f32
-phase recurrence per sample, oracle/native.py) and hand the track to the
+phase recurrence per sample, runtime/native.py) and hand the track to the
 fused kernel's 'host_track' mode. The track gives every segment its exact
 phase, so this route keeps the split (`_split_carrier`), launches no Q32
 pre-pass, and uploads the track once.
@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from .languages import get_language
+from .runtime.native import native_carrier_track
 from .runtime.trace import annotate, span
 from .core.constants import LEHMER_A
 from .core.rng import MASK32, lehmer_skip
@@ -356,14 +357,14 @@ _carrier_cache = {}
 
 def _carrier_track_for(pelems, v: Voice, seed: int) -> Optional[np.ndarray]:
     """Host pre-pass: the reference's exact f32 carrier phase per sample for
-    this utterance (oracle/native.native_carrier_phase_track), memoized over
-    the last 32 utterances. None only when the voice has no registered spec
-    (`_spec_for_voice`); the caller then gets the in-kernel recurrence, and
-    `route` says so. The host library is built at first use; a failed build
-    raises. The look-up and the pre-pass run in the span `track`, with the
-    track's length (`samples`) and whether the memo held it (`hit`)."""
-    from .oracle.native import native_carrier_phase_track
-
+    this utterance (runtime/native.native_carrier_track: the frequency chain
+    alone, bit-equal to oracle/native.native_carrier_phase_track), memoized
+    over the last 32 utterances. None only when the voice has no registered
+    spec (`_spec_for_voice`); the caller then gets the in-kernel recurrence,
+    and `route` says so. The host library is built at first use; a failed
+    build raises. The look-up and the pre-pass run in the span `track`, with
+    the track's length (`samples`) and whether the memo held it (`hit`); a
+    miss adds `track_chain_samples` there too."""
     spec = _spec_for_voice(v)
     if spec is None:
         return None
@@ -375,8 +376,8 @@ def _carrier_track_for(pelems, v: Voice, seed: int) -> Optional[np.ndarray]:
         track = _carrier_cache.get(key)
         hit = track is not None
         if not hit:
-            track = native_carrier_phase_track(pelems, spec,
-                                               jitter_seed=int(seed))
+            track = native_carrier_track(pelems, spec,
+                                         jitter_seed=int(seed))
             if len(_carrier_cache) >= 32:
                 _carrier_cache.clear()
             _carrier_cache[key] = track
@@ -877,7 +878,7 @@ def synthesize_scores(scores: Sequence[Score], voice="generic",
     `_BACKENDS` (see the module doc), None for default_backend();
     `exact_carrier` and the overlap-save split: see `route`.
     `carrier_tracks` (one per score, entries may be None): exact f32
-    carrier phase tracks (oracle/native.native_carrier_phase_track), read
+    carrier phase tracks (runtime/native.native_carrier_track), read
     for one utterance on the fused, xla and scan backends, where a track
     takes precedence over `exact_carrier` (and keeps the fused split)."""
     with span("prep"):
@@ -1012,7 +1013,7 @@ def synthesize_score(score: Score, voice, seed: int = 0,
     (resample the voice first, voice.resampled(sr), as synthesize does).
 
     `carrier_track` (optional f32 [<= T]): the reference's exact
-    per-sample carrier phase (oracle/native.native_carrier_phase_track);
+    per-sample carrier phase (runtime/native.native_carrier_track);
     on the fused, xla and scan backends it replaces the carrier accumulator
     (and keeps the fused split). `synthesize` computes it for long
     utterances."""

@@ -12,12 +12,13 @@ orders of magnitude faster, which is what makes a long-form fidelity gold
 affordable. Selection itself (voice table lookup + GLIDE merge) stays in
 Python: it is O(elements), not O(samples).
 
-`gn_carrier_phase_track` runs the same frequency chain without the filter
-tail and returns the carrier's f32 phase per sample: the host pre-pass of
-the solo long-form route (api._carrier_track_for), whose track the fused
-kernel reads in its 'host_track' mode. Its plain version,
+`gn_carrier_phase_track` runs the same chain without the filter tail and
+returns the carrier's f32 phase per sample. The solo long-form route's host
+pre-pass (api._carrier_track_for) runs the port's own frequency-only chain,
+runtime/native.native_carrier_track; this one, written apart from it, is
+its other side in the tests. Its plain version,
 `carrier_phase_track_reference`, is the NumPy oracle's chain followed by the
-recurrence; the tests and chip_smoke.py hold the two equal bit for bit.
+recurrence; the tests and chip_smoke.py hold the three equal bit for bit.
 """
 
 from __future__ import annotations

@@ -5,18 +5,19 @@ grail_tpu/oracle/native.py. The library is the repository's C++ host tier,
 native/grail_native.cpp (transcriber, the stepwise drift countdown, WAV
 encoder) and native/grail_oracle.cpp (the oracle's DSP chain, the carrier
 phase track, the jitter phase schedule), and the port's own
-runtime/csrc/drift.cpp (the drift countdown in closed form). Where the JAX
-package looks for a library that someone built with `make -C native` and
-carries on without it, this loader builds it itself, from those sources,
-with the host compiler ($CXX, else g++) and the Makefile's flags, into
-build/grail_tpu_torch/ under a name that hashes every source and the flags:
-an edit to any is rebuilt, a stale library is never loaded, and nothing is
-written into native/. A failed build raises with the compiler's output; no
+runtime/csrc/drift.cpp (the drift countdown in closed form) and
+runtime/csrc/carrier_track.cpp (the carrier phase track from the frequency
+chain alone). Where the JAX package looks for a library that someone built
+with `make -C native` and carries on without it, this loader builds it
+itself, from those sources, with the host compiler ($CXX, else g++) and the
+Makefile's flags, into build/grail_tpu_torch/ under a name that hashes every
+source and the flags: an edit to any is rebuilt, a stale library is never
+loaded, and nothing is written into native/. A failed build raises with the compiler's output; no
 binding returns None and no caller carries on without the library.
 
 -ffp-contract=off is what the bit-exact twins rest on: every float32
-operation of the oracle chain, the carrier recurrence, the drift countdown
-and the jitter phase rounds on its own, as numpy's does.
+operation of the oracle chain, the carrier track, the drift countdown and
+the jitter phase rounds on its own, as numpy's does.
 
 Bound here, with grail_tpu's names and signatures:
   * the host frontend's three loops: `native_transcribe` (`NativeRuleset`,
@@ -28,7 +29,10 @@ Bound here, with grail_tpu's names and signatures:
     stays as the tests' other side; so is
     `native_drift_boundaries_stepwise` (gn_drift_boundaries2, one float32
     subtract a sample), kept as the closed form's other side;
-  * the carrier phase track and the oracle DSP chain (oracle/native.py
+  * the solo long-form route's carrier pre-pass: `native_carrier_track`
+    (gt_carrier_track), behind api._carrier_track_for, bit-equal to the
+    oracle's carrier phase track, which stays as its other side;
+  * the oracle's carrier phase track and DSP chain (oracle/native.py
     marshals their arguments) and the WAV encoder.
 ctypes releases the GIL for the length of each foreign call.
 """
@@ -54,7 +58,7 @@ from .trace import tally
 NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 SOURCES = (NATIVE_DIR / "grail_native.cpp", NATIVE_DIR / "grail_oracle.cpp",
-           CSRC_DIR / "drift.cpp")
+           CSRC_DIR / "drift.cpp", CSRC_DIR / "carrier_track.cpp")
 # native/Makefile's flags (without its warnings)
 CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-ffp-contract=off"]
 
@@ -144,6 +148,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gn_jitter_phase_schedule.restype = ctypes.c_int64
     lib.gn_jitter_phase_schedule.argtypes = [
         ctypes.c_float, ctypes.c_float, ctypes.c_int64, f32p, i32p]
+    lib.gt_carrier_track.restype = ctypes.c_int64
+    lib.gt_carrier_track.argtypes = [
+        i32p, f32p, f32p, f32p,                   # present, length, blend,
+        ctypes.c_int64, ctypes.c_float,           # freq [E]; E, sample_rate
+        ctypes.c_uint32,                          # jitter seed
+        ctypes.c_float, ctypes.c_float,           # jf, jdf
+        f32p, ctypes.c_int64]                     # out, out_cap
     return lib
 
 
@@ -333,8 +344,83 @@ def native_jitter_schedule(inc, phase0, T: int, phi: np.ndarray,
         cell.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))))
 
 
+def _carrier_track_inputs(pelems, spec):
+    """Selection for gt_carrier_track, which reads only the frequency:
+    (present i32, length, blend, frequency f32 [E] of the glide-merged
+    elements; sample rate, jitter rate, jitter depth as f32). An element is
+    present iff the voice defines its phoneme; its frequency is the oracle
+    selector's `min(frequency, 0.5)`. Raises ValueError on a non-finite
+    length, as the oracle's marshalling does."""
+    from ..synth.score import merge_glides
+    from ..text.phonemes import is_sound
+
+    defined = {int(Phoneme[name]) for name in spec.phonemes}
+    merged = merge_glides(list(pelems))
+    present = np.array([is_sound(pe.phoneme) and int(pe.phoneme) in defined
+                        for pe in merged], np.int32)
+    length = np.array([pe.length for pe in merged], np.float32)
+    blend = np.array([pe.blend_length for pe in merged], np.float32)
+    freq = np.minimum(np.array([pe.frequency for pe in merged], np.float32),
+                      np.float32(0.5))
+    bad = np.flatnonzero(~np.isfinite(length))
+    if len(bad):
+        i = int(bad[0])
+        raise ValueError(
+            f"element {i} has non-finite length {length[i]!r}; the "
+            "reference sequencer would never terminate on it")
+    sr = np.float32(spec.sample_rate)
+    return (present, length, blend, freq, sr,
+            np.float32(spec.jitter_frequency_hz) / sr,
+            np.float32(spec.jitter_delta_frequency_hz) / sr)
+
+
+def _carrier_track_chain(inputs, jitter_seed: int) -> np.ndarray:
+    """gt_carrier_track on `_carrier_track_inputs`' arrays: the track, a
+    view of the buffer it wrote."""
+    present, length, blend, freq, sr, jf, jdf = inputs
+    lib = load_library()
+    fp = ctypes.POINTER(ctypes.c_float)
+    # the countdown emits ~sum(lengths) * sr samples; drift moves boundaries
+    # by single samples, so a per-element +1 margin is generous
+    cap = int(np.ceil(float(np.sum(length.astype(np.float64)))
+                      * float(sr))) + len(length) + 64
+    for _ in range(3):
+        out = np.empty(cap, np.float32)
+        n = lib.gt_carrier_track(
+            present.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            length.ctypes.data_as(fp), blend.ctypes.data_as(fp),
+            freq.ctypes.data_as(fp), len(length), float(sr),
+            int(jitter_seed) & 0xFFFFFFFF, float(jf), float(jdf),
+            out.ctypes.data_as(fp), cap)
+        if n >= 0:
+            return out[:n]
+        cap *= 2  # n == -1: capacity exceeded (lengths are finite)
+    raise RuntimeError("carrier track output capacity retry exhausted")
+
+
+def native_carrier_track(pelems, spec, jitter_seed: int = 0) -> np.ndarray:
+    """The reference's exact f32 carrier phase per sample (PRE-update, the
+    value polyBLEP and the saw consume; grail-rs src/lib.rs:520-525) for a
+    PhonemeElem sequence in the VoiceSpec `spec`'s voice: the host pre-pass
+    of the solo long-form route (api._carrier_track_for).
+
+    gt_carrier_track (runtime/csrc/carrier_track.cpp) runs only the
+    frequency chain (the sequencer, the crossfade of `frequency`, the
+    frequency jitter) and the carrier recurrence: the same samples, bit for
+    bit, as oracle/native.native_carrier_phase_track, which runs the whole
+    oracle chain without its filter. Selection marshals only what the
+    frequency reads (`_carrier_track_inputs`). Returns a view of the buffer
+    it wrote; raises ValueError on a non-finite length, as the oracle's
+    marshalling does. Adds the samples it produced to the innermost open
+    span (trace.tally: `track_chain_samples`), if any."""
+    track = _carrier_track_chain(_carrier_track_inputs(pelems, spec),
+                                 jitter_seed)
+    tally(track_chain_samples=len(track))
+    return track
+
+
 __all__ = ["NATIVE_DIR", "SOURCES", "CXXFLAGS", "build", "build_info",
            "load_library", "available", "NativeRuleset",
            "native_transcribe", "native_encode_wav",
            "native_drift_boundaries", "native_drift_boundaries_stepwise",
-           "native_jitter_schedule"]
+           "native_jitter_schedule", "native_carrier_track"]

@@ -27,7 +27,9 @@ The spans of the batch path (`api.py`), at most eight a call:
   * `track`     in `prep`, for one utterance that takes the host carrier
                 track (`api._carrier_track_for`): the memo's look-up and, on
                 a miss, the native pre-pass, with the track's `samples` and
-                `hit` (whether the memo held it);
+                `hit` (whether the memo held it), and on a miss
+                `track_chain_samples`, the samples that
+                `native.native_carrier_track` produced;
   * `lattices`  in `prep`: the jitter lattices, one `build_lattice` a seed;
   * `tables`    in `prep`: `build_tables`, the host tables and their upload;
   * `schedule`  in `prep`: the jitter schedule's window on the device

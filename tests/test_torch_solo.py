@@ -117,8 +117,9 @@ def test_a_solo_call_past_the_gate_records_one_track_span(no_launch):
         assert prep.start_ns <= track.start_ns <= track.end_ns <= prep.end_ns
         assert prep.attrs["carrier"] == "track"
     n = len(papi._carrier_track_for(pelems, v, 7))
-    assert [t.attrs for t in tracks] == [{"hit": False, "samples": n},
-                                         {"hit": True, "samples": n}]
+    assert [t.attrs for t in tracks] == [
+        {"hit": False, "samples": n, "track_chain_samples": n},
+        {"hit": True, "samples": n}]
 
 
 @pytest.mark.parametrize("case", ["batch of two", "solo under 30 s"])
