@@ -846,8 +846,7 @@ def _synthesize_split(scores: Sequence[Score], voice="generic",
     host track of `carrier_tracks` for one utterance), with
     T = round_up(maxN, S * BLOCK_SIZE): what synthesize_scores runs when
     route picks S, reachable here at any S and on the CPU too (the tests
-    and chip_smoke.py use it). Same arguments and outputs as
-    synthesize_scores."""
+    use it). Same arguments and outputs as synthesize_scores."""
     scores = list(scores)
     if not scores:
         return []

@@ -18,7 +18,7 @@ pre-pass (api._carrier_track_for) runs the port's own frequency-only chain,
 runtime/native.native_carrier_track; this one, written apart from it, is
 its other side in the tests. Its plain version,
 `carrier_phase_track_reference`, is the NumPy oracle's chain followed by the
-recurrence; the tests and chip_smoke.py hold the three equal bit for bit.
+recurrence; the tests hold the three equal bit for bit.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@
 // What bounds it on this card: issue slots, not bytes. It reads a few KB of
 // tables per utterance and an 8 B/sample schedule shared by every
 // utterance (L2-resident across them), and writes 4 B per 1024 samples.
-// The function needs ~23 operations a sample (chip_smoke.py's count), but
+// The function needs ~23 operations a sample (~18 for the chain, a compare
+// and a select that keep the element index, 3 for the Q32 sum), but
 // the shared frequency chain compiles to some 80-90 instructions a sample:
 // the IEEE division with its slow-path check, the 4-case pick's branches,
 // six row and two lattice reads. On an H100 (benchmarks/kernels23_ab.py)

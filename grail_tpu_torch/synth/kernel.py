@@ -18,7 +18,8 @@ Two implementations with one signature, (streams, lp, b, c) -> (audio
 
   * `synth_core_reference` — plain PyTorch, a Python loop over T in the
     kernel's exact operation order, the formants summed left to right. The
-    CPU path and the tests use it; chip_smoke.py holds the kernel to it.
+    CPU path and the tests use it; tests/test_torch_cuda.py holds the
+    kernel to it on the card.
   * `synth_core_cuda` — the CUDA kernel synth/csrc/synth_core.cu.
 
 `synth_core` (the counterpart of synth_core_pallas) runs the prep and the

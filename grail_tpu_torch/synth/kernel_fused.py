@@ -37,7 +37,8 @@ phi and cell are None in 'carry' mode:
   * `synth_fused_reference` — plain PyTorch: A-C vectorized over [B, T],
     the Q32 carrier as an int64 cumsum, the f32 carrier and D as Python
     loops over samples. Runs on any device; the CPU path and the tests use
-    it, and chip_smoke.py holds the kernel against it on the card.
+    it, and tests/test_torch_cuda.py holds the kernel against it on the
+    card.
   * `fused_synth_cuda` — the CUDA kernel synth/csrc/fused_synth.cu, one
     thread block per utterance (or per segment of one, on the split).
 

@@ -153,8 +153,7 @@ def test_batch_argument_errors():
 def test_port_imports_no_jax():
     code = ("import sys, grail_tpu_torch, grail_tpu_torch.convert, "
             "grail_tpu_torch.utils, grail_tpu_torch.synth._build, "
-            "grail_tpu_torch.synth.kernel, grail_tpu_torch.synth.sequencer, "
-            "chip_smoke; "
+            "grail_tpu_torch.synth.kernel, grail_tpu_torch.synth.sequencer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'grail_tpu')); assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

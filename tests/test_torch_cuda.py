@@ -20,6 +20,9 @@ from grail_tpu_torch.synth.score import stack_scores
 
 pytestmark = pytest.mark.cuda
 
+# bench.py's batch: 64 texts of 8-15 characters, the main path's B = 64
+BENCH_TEXTS = tuple(("aeae" * 4)[:8 + (i % 8)] for i in range(64))
+
 
 @pytest.fixture
 def cuda():
@@ -28,12 +31,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tables(texts, voices, device, seeds=None):
+@pytest.fixture
+def card_mesh(cuda, tmp_path):
+    """make_mesh(1, 1, "cuda") in a one-rank gloo group of this process (no
+    second process), the group torn down after the test."""
+    import torch.distributed as dist
+
+    from grail_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(1, 1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tables(texts, voices, device, seeds=None, T=None):
     voices = [g.get_voice(v) for v in voices]
     sr = float(voices[0].sample_rate)
     E = max(g.text_to_score(t, v).num_elems for t, v in zip(texts, voices))
     scores = [g.text_to_score(t, v, pad_to=E) for t, v in zip(texts, voices)]
-    T = _round_up(max(_score_num_samples(s, sr) for s in scores), 4096)
+    T = T or _round_up(max(_score_num_samples(s, sr) for s in scores), 4096)
     seeds = seeds or list(range(len(texts)))
     inc = voices[0].jitter_frequency
     lat = JitterLattice(*(np.stack(f) for f in zip(
@@ -45,12 +64,18 @@ def _tables(texts, voices, device, seeds=None):
     return tables, device_window(inc, 0, T, device), T
 
 
-@pytest.mark.parametrize("kcar", [False, True], ids=["q32", "kcar"])
-def test_kernel_equals_plain_bitwise(cuda, kcar):
+@pytest.mark.parametrize("kcar,texts,T", [
+    (False, ("ae", "ea", "aeae"), None), (True, ("ae", "ea", "aeae"), None),
+    (False, BENCH_TEXTS, None), (True, BENCH_TEXTS, 65536)],
+    ids=["q32", "kcar", "q32_b64", "kcar_b64_t65536"])
+def test_kernel_equals_plain_bitwise(cuda, kcar, texts, T):
     # no FMA contraction in the kernel and one op order in both: the audio
-    # and the whole carried state agree bit for bit
-    tables, (phi, cell), T = _tables(["ae", "ea", "aeae"],
-                                     ["generic", "generic", "generic"], cuda)
+    # and the whole carried state agree bit for bit. Also at the main
+    # path's unsplit shape, bench.py's 64 texts: Q32 over their whole
+    # length, kcar over the first 65,536 samples (its plain carrier is a
+    # second loop over the samples)
+    tables, (phi, cell), T = _tables(texts, ["generic"] * len(texts), cuda,
+                                     T=T)
     B = tables.n.shape[0]
     sf = torch.randn(B, 24, device=cuda) * 1e-3
     si = torch.tensor([[123456789, 42, 0]] * B, dtype=torch.int32,
@@ -169,10 +194,13 @@ def test_seam_phase_equals_unsplit_kernel_phase(cuda):
                            q[n // papi.BLOCK_SIZE])
 
 
-def test_split_kernel_equals_plain_bitwise(cuda):
-    # split lanes: per-lane offsets g0, schedule rows, seam phases, seeds
-    S = 4
-    tables, _, _, T = _split_setup(cuda, S)
+@pytest.mark.parametrize("texts,S", [(("ae", "ea", "aeae"), 4),
+                                     (BENCH_TEXTS, 8)],
+                         ids=["s4", "b64_s8"])
+def test_split_kernel_equals_plain_bitwise(cuda, texts, S):
+    # split lanes: per-lane offsets g0, schedule rows, seam phases, seeds;
+    # also at the main path's split, bench.py's 64 texts on 512 lanes
+    tables, _, _, T = _split_setup(cuda, S, texts, list(range(len(texts))))
     tables_t, (phi, cell), state, q, g0, _ = papi._split_lanes(
         tables, T, S, "kernel", g.get_voice("generic").jitter_frequency)
     sf, si = kf.state_rows(state, q)
@@ -223,8 +251,8 @@ def test_slots_from_the_card(cuda):
     assert slots >= 4 * sms
     assert 0 < geo["registers"] <= 96
     # bench.py's 64 texts still split 8 ways in one wave
-    texts = [("aeae" * 4)[:8 + (i % 8)] for i in range(64)]
-    b = papi._Batch([g.text_to_score(t) for t in texts], "generic", None)
+    b = papi._Batch([g.text_to_score(t) for t in BENCH_TEXTS], "generic",
+                    None)
     S = g.route(64, max(b.Ns), None, cuda, 44100.0)[2]
     assert S == 8 and S * 64 <= slots
 
@@ -320,8 +348,7 @@ def test_pre_pass_geometry(cuda):
 
 
 @pytest.mark.parametrize("texts,S", [(("aea",), 32),
-                                     (tuple(("aeae" * 4)[:8 + (i % 8)]
-                                            for i in range(64)), 8)],
+                                     (BENCH_TEXTS, 8)],
                          ids=["solo_s32", "b64_s8"])
 def test_seam_phase_at_main_path_geometry(cuda, texts, S):
     # the seams of the main path's two splits (B = 1 with 8 warps a chunk,
@@ -634,11 +661,12 @@ def _carry_setup(device, N, seed=0):
                 lat_base=torch.from_numpy(lat_base).to(device), inc=inc)
 
 
-@pytest.mark.parametrize("N", [3, 128])
+@pytest.mark.parametrize("N", [3, 128, 512])
 def test_carry_kernel_equals_plain_bitwise(cuda, N):
     # five ticks, each version carrying its own state and the offsets
     # advancing by a block: audio, sf, si (seed, carrier phase, jitter
-    # phase and absolute cell) bit for bit at every tick
+    # phase and absolute cell) bit for bit at every tick; N = 512 is the
+    # serving pool's main width
     x = _carry_setup(cuda, N)
     blk = 1024
     kst = pst = (x["sf"], x["si"])
@@ -844,32 +872,68 @@ def test_served_outputs_outlive_later_ticks(cuda):
     pool.serve_stop()
 
 
-def test_steady_served_ticks_copy_nothing_from_the_host(cuda):
-    # one replay and one device copy per steady tick: the profiler sees
-    # the carry kernel once a tick and no host->device copy
+# the kernel each LAUNCHES key counts, as the profiler's trace names it
+_TRACED = {"fused_synth_carry": "fused_synth_kernel",
+           "carrier_scan": "carrier_scan_kernel",
+           "jsched_scan": "jsched_scan_kernel"}
+
+
+@pytest.mark.parametrize("mode,block", [("served", 1024), ("eager", 1024),
+                                        ("served", 441), ("eager", 441),
+                                        ("mesh", 1024)],
+                         ids=["served", "eager", "served_xla", "eager_xla",
+                              "eager_mesh"])
+def test_steady_served_ticks_copy_nothing_from_the_host(cuda, mode, block,
+                                                        request):
+    # a steady tick copies nothing from the host: the profiler sees the
+    # tick's kernels once a tick and no host->device copy. Served: one
+    # replay and one device copy; eager: read_block on the fused tick, the
+    # xla tick and a one-rank mesh's tick, the default 60 s windows (none
+    # slides), every session fed
     # (a warm-up step of the profiler first: without it a trace of 20
     # served ticks once missed one graph-launched kernel)
-    pool, _ = _serve_pools(3, pin_elems=64)
-    pool.serve_start(period=9999)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1)
-    with torch.profiler.profile(activities=acts, schedule=sched,
-                                acc_events=True) as prof:
-        for _ in range(3):
-            pool.serve_tick()
-        torch.cuda.synchronize()
-        prof.step()
-        n0 = kf.LAUNCHES["fused_synth_carry"]
-        for _ in range(5):
-            pool.serve_tick()
-        torch.cuda.synchronize()
-        prof.step()
+    import contextlib
+
+    from grail_tpu_torch.runtime.stream import _TICK_LAUNCHES, StreamPool
+
+    with contextlib.ExitStack() as stack:
+        if mode == "served":
+            pool, _ = _serve_pools(3, pin_elems=64, block=block)
+            pool.serve_start(period=9999)
+            stack.callback(pool.serve_stop)
+            tick = pool.serve_tick
+        else:
+            kw = {}
+            if mode == "mesh":
+                kw["mesh"] = request.getfixturevalue("card_mesh")
+            pool = StreamPool(3, voice="plain", language="english",
+                              block=block, **kw)
+            for i in range(3):
+                pool.feed(i, _SERVE_TEXTS[i + 2])
+            pool.flush()
+            for _ in range(4):
+                pool.read_block()
+            tick = pool.read_block
+        names = _TICK_LAUNCHES[pool._program]
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1)
+        with torch.profiler.profile(activities=acts, schedule=sched,
+                                    acc_events=True) as prof:
+            for _ in range(3):
+                tick()
+            torch.cuda.synchronize()
+            prof.step()
+            n0 = dict(kf.LAUNCHES)
+            for _ in range(5):
+                tick()
+            torch.cuda.synchronize()
+            prof.step()
     ev = {e.key: e.count for e in prof.key_averages()}
     assert sum(c for k, c in ev.items() if "HtoD" in k) == 0, ev
-    assert sum(c for k, c in ev.items() if "fused_synth_kernel" in k) == 5
-    assert kf.LAUNCHES["fused_synth_carry"] == n0 + 5
-    pool.serve_stop()
+    for name in names:
+        assert sum(c for k, c in ev.items() if _TRACED[name] in k) == 5, ev
+        assert kf.LAUNCHES[name] == n0[name] + 5
 
 
 def test_captures_run_on_the_frontend_thread(cuda):
@@ -929,16 +993,13 @@ def test_a_failed_capture_raises_and_publishes_nothing(cuda, monkeypatch):
     pool.serve_stop()
 
 
-def test_one_rank_mesh_pool_equals_the_pool_on_the_card(cuda, tmp_path):
+def test_one_rank_mesh_pool_equals_the_pool_on_the_card(card_mesh):
     # StreamPool(mesh=) on a one-rank mesh (gloo, so no second process):
     # one carry launch a tick, its reads, save() and served ticks equal to
-    # the unsharded pool's (chip_smoke.py phase 19 runs the shared-card
-    # meshes at full width)
+    # the unsharded pool's (tests/test_torch_pool_mesh.py runs meshes of
+    # several ranks on the CPU)
     import io
 
-    import torch.distributed as dist
-
-    from grail_tpu_torch.parallel import make_mesh
     from grail_tpu_torch.runtime.stream import StreamPool
 
     def mk(**kw):
@@ -950,57 +1011,103 @@ def test_one_rank_mesh_pool_equals_the_pool_on_the_card(cuda, tmp_path):
         pool.flush()
         return pool
 
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
-                            rank=0, world_size=1)
+    sharded, ref = mk(mesh=card_mesh), mk()
+    assert sharded.device == torch.device(
+        "cuda", torch.cuda.current_device())      # the mesh's device
+    assert sharded.local_sessions == range(6)
+    n0 = kf.LAUNCHES["fused_synth_carry"]
+    got = [sharded.read_block(sync=False) for _ in range(4)]
+    assert kf.LAUNCHES["fused_synth_carry"] == n0 + 4
+    for a in got:
+        assert torch.equal(a, ref.read_block(sync=False))
+    za, zb = (np.load(io.BytesIO(p.save())) for p in (sharded, ref))
+    assert za.files == zb.files
+    for k in za.files:
+        np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+    for p in (sharded, ref):
+        p.serve_start(period=9999)
     try:
-        sharded, ref = mk(mesh=make_mesh(1, 1, "cuda")), mk()
-        assert sharded.device == torch.device(
-            "cuda", torch.cuda.current_device())      # the mesh's device
-        assert sharded.local_sessions == range(6)
-        n0 = kf.LAUNCHES["fused_synth_carry"]
-        got = [sharded.read_block(sync=False) for _ in range(4)]
-        assert kf.LAUNCHES["fused_synth_carry"] == n0 + 4
-        for a in got:
-            assert torch.equal(a, ref.read_block(sync=False))
-        za, zb = (np.load(io.BytesIO(p.save())) for p in (sharded, ref))
-        assert za.files == zb.files
-        for k in za.files:
-            np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
-        for p in (sharded, ref):
-            p.serve_start(period=9999)
-        try:
-            for _ in range(4):
-                assert torch.equal(sharded.serve_tick(), ref.serve_tick())
-        finally:
-            for p in (sharded, ref):
-                p.serve_stop()
+        for _ in range(4):
+            assert torch.equal(sharded.serve_tick(), ref.serve_tick())
     finally:
-        dist.destroy_process_group()
+        for p in (sharded, ref):
+            p.serve_stop()
+
+
+def test_one_rank_mesh_pipeline_equals_the_xla_program_on_the_card(
+        cuda, card_mesh):
+    # sharded_pipeline on a one-rank card mesh (gloo, in process) renders
+    # the single-process xla program's Q32 audio for bench.py's 64 texts,
+    # and like it launches no kernel (tests/test_torch_parallel.py runs
+    # meshes of several ranks on the CPU)
+    from grail_tpu_torch.parallel import sharded_pipeline
+    from grail_tpu_torch.utils import sample_error_db
+
+    b = papi._Batch([g.text_to_score(t) for t in BENCH_TEXTS], "generic",
+                    None)
+    T = _round_up(max(b.Ns), 8192)
+    lattices, jparams = b.jitter(T)
+    n0 = dict(kf.LAUNCHES)
+    ref = papi._xla_run(papi._core_unsplit_setup(
+        b.core_lanes(T, cuda), T, b.sr, jparams[0]), "q32").cpu().numpy()
+    out = sharded_pipeline(stack_scores(b.scores), lattices, jparams, b.sr,
+                           T, card_mesh)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES == n0
+    assert out.device.type == "cuda" and tuple(out.shape) == (64, T)
+    out = out.cpu().numpy()
+    assert np.isfinite(out).all()
+    for k in range(64):
+        assert sample_error_db(out[k], ref[k]) < -100, k
 
 
 # ---- the host_track mode (the solo long-form route) and the FP32 probe -----
 
-@pytest.mark.parametrize("S", [1, 4], ids=["unsplit", "split4"])
+def _long_form_lanes(cuda):
+    """The long-form route's own split of LONG_EN (86.5 s, voice plain,
+    english) on this card, with its native carrier track: (lanes,
+    schedule rows, g0, track rows, lane length, sf, si)."""
+    from grail_tpu_torch.benchmarks.kernel1_ab import LONG_EN
+
+    v = g.get_voice("plain")
+    pel = g.text_to_phoneme_elems(LONG_EN, v, "english")
+    b = papi._Batch([papi.score_from_phoneme_elems(pel, v)], v, [0])
+    impl, carrier, S, T = g.route(1, b.Ns[0], None, cuda, b.sr, track=True)
+    assert (impl, carrier) == ("kernel", "track") and S > 1
+    track = papi._carrier_track_for(pel, v, 0)
+    lanes, seg, state, q, g0, car = papi._split_lanes(
+        b.tables(T, cuda), T, S, "kernel", v.jitter_frequency, track)
+    return (lanes, seg, g0, car, T // S + papi.WARMUP,
+            *kf.state_rows(state, q))
+
+
+@pytest.mark.parametrize("S", [1, 4, None],
+                         ids=["unsplit", "split4", "long_form_route"])
 def test_host_track_kernel_equals_plain_bitwise(cuda, S):
     # the track replaces both carrier accumulators; kernel and plain version
-    # read the same track, so audio and carried state agree bit for bit
-    tables, (phi, cell), T = _tables(["aeae"], ["generic"], cuda)
-    rng = np.random.default_rng(S)
-    track = rng.random(T - 11).astype(np.float32)
-    if S == 1:
-        car = papi._pad_track(track, T, cuda)
-        sched, lanes, g0, Tl = (phi, cell), tables, None, T
+    # read the same track, so audio and carried state agree bit for bit.
+    # S None: every lane of the long-form route's split on the card, reading
+    # the text's own native track
+    if S is None:
+        lanes, sched, g0, car, Tl, sf, si = _long_form_lanes(cuda)
     else:
-        T = _round_up(T, S * 4096)
-        lanes, seg, state, q, g0, car = papi._split_lanes(
-            tables, T, S, "kernel", g.get_voice("generic").jitter_frequency,
-            track)
-        sched, Tl = seg, T // S + papi.WARMUP
-        assert car.stride() == seg[0].stride() and not q.any()
-    B = lanes.n.shape[0]
-    sf = torch.randn(B, 24, device=cuda) * 1e-3
-    si = torch.tensor([[123456789, 42, 7]] * B, dtype=torch.int32,
-                      device=cuda)
+        tables, (phi, cell), T = _tables(["aeae"], ["generic"], cuda)
+        rng = np.random.default_rng(S)
+        track = rng.random(T - 11).astype(np.float32)
+        if S == 1:
+            car = papi._pad_track(track, T, cuda)
+            sched, lanes, g0, Tl = (phi, cell), tables, None, T
+        else:
+            T = _round_up(T, S * 4096)
+            lanes, seg, state, q, g0, car = papi._split_lanes(
+                tables, T, S, "kernel",
+                g.get_voice("generic").jitter_frequency, track)
+            sched, Tl = seg, T // S + papi.WARMUP
+            assert car.stride() == seg[0].stride() and not q.any()
+        B = lanes.n.shape[0]
+        sf = torch.randn(B, 24, device=cuda) * 1e-3
+        si = torch.tensor([[123456789, 42, 7]] * B, dtype=torch.int32,
+                          device=cuda)
     n0 = dict(kf.LAUNCHES)
     out_k = kf.fused_synth_cuda(lanes, *sched, sf, si, Tl, False, g0=g0,
                                 carrier=car)
@@ -1066,6 +1173,59 @@ def test_solo_track_route_on_cuda_matches_cpu(cuda):
                      exact_carrier="kernel")
     np.testing.assert_allclose(a.cpu().numpy(), k.cpu().numpy(), atol=5e-5,
                                rtol=0)
+
+
+def test_long_form_route_on_the_card(cuda, tmp_path, monkeypatch):
+    # the solo long-form route at full width, from the command line to a
+    # WAV: an 86.5 s text takes the host track on the split, one launch of
+    # kernel 1's track mode and no other kernel; its audio passes the
+    # fidelity gate against the native oracle (< -60 dB spectral error)
+    # and stays within 5e-5 per 30 s of audio of the in-kernel
+    # recurrence's route (the two frequency chains' ulps add up over the
+    # f32 carrier recurrence: 4.64e-5 was read at 86.5 s). Then one REPL
+    # line on the card.
+    import io
+    import sys
+
+    from grail_tpu_torch import cli, interactive
+    from grail_tpu_torch.benchmarks.kernel1_ab import LONG_EN
+    from grail_tpu_torch.oracle.native import gold_dsp_chain
+    from grail_tpu_torch.runtime.wav import load_wav
+    from grail_tpu_torch.utils import spectral_error_db
+    from grail_tpu_torch.voices import get_spec
+
+    v = g.get_voice("plain")
+    sr = float(v.sample_rate)
+    pel = g.text_to_phoneme_elems(LONG_EN, v, "english")
+    N = _score_num_samples(papi.score_from_phoneme_elems(pel, v), sr)
+    impl, carrier, S, _ = g.route(1, N, None, cuda, sr, track=True)
+    assert (impl, carrier) == ("kernel", "track") and S > 1
+    wav = str(tmp_path / "long.wav")
+    n0 = dict(kf.LAUNCHES)
+    assert cli.main(["-v", "plain", "-l", "english", "-o", wav, "-s",
+                     LONG_EN]) == 0
+    torch.cuda.synchronize()
+    assert {k: kf.LAUNCHES[k] - n0[k] for k in n0
+            if kf.LAUNCHES[k] != n0[k]} == {"fused_synth_track": 1}
+    pcm, wav_sr = load_wav(wav)
+    assert wav_sr == int(sr) and len(pcm) == N and np.isfinite(pcm).all()
+    a = g.synthesize(LONG_EN, "plain", "english").cpu().numpy()
+    assert np.abs(a - pcm).max() <= 1.5 / 32767     # one PCM step
+    assert spectral_error_db(a, gold_dsp_chain(pel, get_spec("plain"),
+                                               0)) < -60
+    assert g.route(1, N, "kernel", cuda, sr)[1:3] == ("kcar", 1)
+    k = g.synthesize(LONG_EN, "plain", "english",
+                     exact_carrier="kernel").cpu().numpy()
+    assert np.abs(a - k).max() <= 5e-5 * max(1.0, N / sr / 30.0)
+
+    repl = str(tmp_path / "repl.wav")
+    monkeypatch.setattr(sys, "stdin", io.StringIO("hello\n"))
+    n0 = dict(kf.LAUNCHES)
+    assert interactive.main(["-o", repl, "--block", "1024"]) == 0
+    assert {k for k in n0 if kf.LAUNCHES[k] != n0[k]} == \
+        {"fused_synth_carry"}
+    out, _ = load_wav(repl)
+    assert np.isfinite(out).all() and np.abs(out).max() > 0.01
 
 
 def test_fma_peak_kernel_against_plain(cuda):

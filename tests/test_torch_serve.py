@@ -368,3 +368,23 @@ def test_serve_mode_threaded_soak():
     assert pool._serve_ticks == 60
     assert [s._jitter_pos for s in pool.sessions] == [60 * BLOCK] * N
     assert np.isfinite(pool.read_block()).all()
+
+
+def test_paced_run_counts_every_tick():
+    # benchmarks/serve_paced's paced run on the CPU pool: every tick reaches
+    # the sink in order, the frontend cycles on its own period, the feeder
+    # feeds, and the pool reads on after it (its times say nothing here)
+    from grail_tpu_torch.benchmarks import serve_paced
+
+    pool = _fed(pstream, device="cpu")
+    r = serve_paced.paced(pool, seconds=0.3)
+    period = BLOCK / pool.sample_rate
+    assert r["ticks"] == int(0.3 / period) == pool._serve_ticks
+    # grail_tpu's cadence: 12 feeds a second over the pool, 7 periods apart
+    # at least (one feed, at tick 0, in this run)
+    assert r["feed_every"] == max(7, int(np.ceil(12 / (N * period))))
+    assert r["captures"] == 0
+    assert r["frontend_cycles"] > 0
+    assert set(r["misses"]) == {1, 2, 3}
+    assert r["misses"][1] >= r["misses"][2] >= r["misses"][3] >= 0
+    assert np.isfinite(pool.read_block()).all()

@@ -28,7 +28,8 @@ torch.set_num_threads(2)
 FEEDS = {0: "[rate:8]hello hello", 1: "[pitch:180]aeio"}   # 2 idles
 SEEDS = [3, 7, 6]
 SAMPLES = 30 * 1024        # per pool run, whatever the block
-# chip_smoke.py's long-form text: 86.5 s with voice plain, english
+# the long-form text of benchmarks/fidelity_suite.py: 86.5 s with voice
+# plain, english
 LONG_EN = ("the quick brown fox jumps over the lazy dog, while seventeen "
            "synthesizers hum along in the hall. is anyone still listening "
            "to this? the formants drift on and on.")
