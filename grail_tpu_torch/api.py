@@ -43,9 +43,11 @@ The split (`_synthesize_split`, the counterpart of grail_tpu's
 _synth_jit_split_fused) runs each utterance's time axis as S segments on S
 kernel lanes, so that a small batch fills the card: each segment re-derives
 its filter state from a WARMUP-sample pre-roll whose output is discarded,
-while the Q32 carrier phase (the pre-pass kernel's exact integral) and the
-Lehmer seed (closed-form skip-ahead) continue exactly. `choose_split` picks
-S from the card's resident-block capacity. The core backend splits the
+while the carrier phase and the Lehmer seed (closed-form skip-ahead)
+continue exactly: the Q32 phase from the pre-pass kernel's exact integral,
+the exact f32 phase ('kcar') from the seam pre-pass kernel, which steps the
+reference's f32 recurrence to each segment's first sample. `choose_split`
+picks S from the card's resident-block capacity. The core backend splits the
 same way (`_core_split_program`, the counterpart of _synth_jit_split), with
 a plain PyTorch pre-pass that integrates the Q32 phase of expand_frequency's
 stream, and S from the core kernel's own lane capacity. On the CPU the route
@@ -71,7 +73,7 @@ import torch
 
 from .languages import get_language
 from .runtime.native import native_carrier_track
-from .runtime.trace import annotate, span
+from .runtime.trace import annotate, span, tally
 from .core.constants import LEHMER_A
 from .core.rng import MASK32, lehmer_skip
 from .synth.elem import SynthesisElem
@@ -79,7 +81,8 @@ from .synth.jitter import (JitterLattice, apply_jitter, build_lattice,
                            lattice_to, per_lane, pitch_values, sched_slice)
 from .synth.kernel import CORE_MAX_LANES, synth_core
 from .synth.kernel_fused import (FusedTables, build_tables, fused_synth_slots,
-                                 phase_q32_pre_block, synth_fused)
+                                 kcar_seam_phases, phase_q32_pre_block,
+                                 synth_fused)
 from .synth.schedule import device_window
 from .synth.sequencer import expand_frequency, expand_score
 from .synth.synthesize import (_INV_Q32, _Q32, SynthState, _block_core,
@@ -232,9 +235,10 @@ def route(B: int, maxN: int, exact_carrier, device,
     A track does not apply to B > 1 or to the core backend: the returned
     mode says what will run. S, T: the overlap-save split and the padded
     length, from choose_split with the card's resident-block capacity on
-    'cuda'; 'track' keeps the split (the track holds every segment's exact
-    phase). On 'cpu' (slots = 1) and with 'kcar' (the split cannot seed
-    segment-boundary f32 phases) S = 1, T = round_up(maxN, BLOCK_SIZE).
+    'cuda', whatever the carrier: 'track' splits with every segment's exact
+    phase read from the track, 'kcar' with each segment's exact f32 phase
+    from the seam pre-pass kernel. On 'cpu' (slots = 1) S = 1,
+    T = round_up(maxN, BLOCK_SIZE).
 
     The core backend has the Q32 carrier only, as in grail_tpu: with it
     exact_carrier True or 'kernel' raises ValueError, and None stays Q32 at
@@ -277,7 +281,7 @@ def route(B: int, maxN: int, exact_carrier, device,
     if exact_carrier in (True, "kernel") or (
             exact_carrier is None
             and maxN > EXACT_CARRIER_AUTO_SECONDS * float(sample_rate)):
-        return impl, "kcar", 1, _round_up(max(maxN, 1), BLOCK_SIZE)
+        return (impl, "kcar") + choose_split(B, maxN, slots)
     return (impl, "q32") + choose_split(B, maxN, slots)
 
 
@@ -478,7 +482,7 @@ def _split_sched(inc, T: int, S: int, device):
 
 
 def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc,
-                 track=None, sched=None):
+                 track=None, sched=None, kcar: bool = False):
     """The fused synthesizer's inputs for the split of B utterances of T
     samples (T % (S * BLOCK_SIZE) == 0) into S*B lanes of Ts + W samples:
     (tables tiled s-major, segment schedule rows (phi, cell) [S, Ts + W],
@@ -487,8 +491,13 @@ def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc,
     (`impl`) integrates the Q32 phase to every block boundary; segment 0
     starts at phase 0. With a carrier `track` (one utterance) the segments
     read their phases from it (`_split_carrier`): the pre-pass is not
-    launched and the Q32 phases are zero. `sched` is `_split_sched(inc, T,
-    S, device)` where the caller has built it already."""
+    launched and the Q32 phases are zero. With `kcar` (the exact f32
+    carrier stepped in the kernel) the seam pre-pass steps the reference's
+    f32 recurrence to each segment's first sample g0 + 1 and puts that
+    phase in the lane's state.phase; segment 0 starts at phase 0, which its
+    pre-roll of silence (f = 0.25 exactly, W % 4 == 0) brings back to 0 at
+    sample 1. `sched` is `_split_sched(inc, T, S, device)` where the caller
+    has built it already."""
     if S < 2 or T % (S * BLOCK_SIZE):
         raise ValueError(f"need S >= 2 and T % (S*{BLOCK_SIZE}) == 0, got "
                          f"S={S}, T={T}")
@@ -500,6 +509,13 @@ def _split_lanes(tables: FusedTables, T: int, S: int, impl: str, inc,
         car = _split_carrier(track, T, S, tables.n.device)
         q = torch.zeros(S * B, dtype=torch.int64, device=tables.n.device)
         return tables_t, seg, state, q, g0_lane, car
+    if kcar:
+        seams = kcar_seam_phases(tables, pre, g0[1], T // S, S - 1, impl)
+        phase = torch.cat([torch.zeros(B, dtype=torch.float32,
+                                       device=tables.n.device),
+                           seams.reshape(-1)])
+        q = torch.zeros(S * B, dtype=torch.int64, device=tables.n.device)
+        return tables_t, seg, state._replace(phase=phase), q, g0_lane, None
     q_at_block = phase_q32_pre_block(tables, pre, T, BLOCK_SIZE, impl)
     q_seg = q_at_block[[max(g, 0) // BLOCK_SIZE for g in g0]]  # [S, B]
     q_seg[0] = 0
@@ -514,14 +530,16 @@ def _reassemble(full: torch.Tensor, B: int, T: int, S: int) -> torch.Tensor:
 
 
 def _split_program(tables: FusedTables, T: int, S: int, impl: str,
-                   inc, track=None, sched=None) -> torch.Tensor:
+                   inc, track=None, sched=None,
+                   kcar: bool = False) -> torch.Tensor:
     """Overlap-save split over B utterances of T samples: the fused
     synthesizer over the S*B lanes of `_split_lanes`, reassembled.
     Returns audio [B, T]."""
     tables_t, seg, state, q, g0, car = _split_lanes(tables, T, S, impl, inc,
-                                                    track, sched)
+                                                    track, sched, kcar)
     full, _ = synth_fused(tables_t, T // S + WARMUP, impl, state=state,
-                          sched=seg, phase_q32=q, g0=g0, carrier=car)
+                          sched=seg, exact_carrier=kcar, phase_q32=q, g0=g0,
+                          carrier=car)
     return _reassemble(full, tables.n.shape[0], T, S)
 
 
@@ -815,12 +833,14 @@ class _Batch:
         with span("launch"):
             if S > 1:
                 audio = _split_program(tables, T, S, impl, inc, track,
-                                       sched=sched)
+                                       sched=sched, kcar=carrier == "kcar")
             else:
                 car = None if track is None else _pad_track(track, T, dev)
                 audio, _ = synth_fused(tables, T, impl, sched=sched,
                                        exact_carrier=carrier == "kcar",
                                        carrier=car)
+        if carrier == "kcar" and S > 1:     # the seam pre-pass's lane-samples
+            tally(kcar_seam_samples=self.B * _segments(T, S)[0][-1])
         return [audio[i, :n] for i, n in enumerate(self.Ns)]
 
 
@@ -840,13 +860,15 @@ def _applicable_track(carrier_tracks, B: int, backend):
 def _synthesize_split(scores: Sequence[Score], voice="generic",
                       seeds: Optional[Sequence[int]] = None, S: int = 2,
                       device="cuda", backend="fused",
-                      carrier_tracks: Optional[Sequence] = None
-                      ) -> List[torch.Tensor]:
-    """The overlap-save split route at a given S >= 2 (Q32 carrier, or the
-    host track of `carrier_tracks` for one utterance), with
-    T = round_up(maxN, S * BLOCK_SIZE): what synthesize_scores runs when
-    route picks S, reachable here at any S and on the CPU too (the tests
-    use it). Same arguments and outputs as synthesize_scores."""
+                      carrier_tracks: Optional[Sequence] = None,
+                      exact_carrier=False) -> List[torch.Tensor]:
+    """The overlap-save split route at a given S >= 2 (the carrier that
+    `route` gives for `exact_carrier`: Q32, the exact f32 carrier from the
+    seam pre-pass, or the host track of `carrier_tracks` for one
+    utterance), with T = round_up(maxN, S * BLOCK_SIZE): what
+    synthesize_scores runs when route picks S, reachable here at any S and
+    on the CPU too (the tests use it). Same arguments and outputs as
+    synthesize_scores."""
     scores = list(scores)
     if not scores:
         return []
@@ -855,8 +877,8 @@ def _synthesize_split(scores: Sequence[Score], voice="generic",
                          "the fused and core programs")
     b = _Batch(scores, voice, seeds)
     track = _applicable_track(carrier_tracks, b.B, backend)
-    impl, carrier = route(b.B, max(b.Ns), False, device, b.sr, backend,
-                          track=track is not None)[:2]
+    impl, carrier = route(b.B, max(b.Ns), exact_carrier, device, b.sr,
+                          backend, track=track is not None)[:2]
     T = _round_up(max(max(b.Ns), 1), S * BLOCK_SIZE)
     return b.run(impl, carrier, S, T, torch.device(device),
                  _check_backend(backend), track)
@@ -918,10 +940,10 @@ def synthesize_batch(texts: Sequence[str], voice="generic",
     first (reference resampling, src/lib.rs:418-440). `exact_carrier`, as
     in grail_tpu: None (auto: the reference's exact f32 carrier for
     utterances past EXACT_CARRIER_AUTO_SECONDS: the host track of the
-    native pre-pass for one utterance of a registered voice, which keeps
-    the split; the in-kernel recurrence, unsplit, for a batch or a voice
-    file), True (the exact carrier at any length, by the same rule),
-    'kernel' (pin the in-kernel recurrence), False (Q32 carrier).
+    native pre-pass for one utterance of a registered voice; the in-kernel
+    recurrence for a batch or a voice file; both split, see `route`), True
+    (the exact carrier at any length, by the same rule), 'kernel' (pin the
+    in-kernel recurrence), False (Q32 carrier).
     `backend`: 'fused' (None: default_backend()), 'core' ('pallas'), the
     round-1 program, which has the Q32 carrier only (exact_carrier True
     raises; None stays Q32), 'xla' or 'scan' (see the module doc and

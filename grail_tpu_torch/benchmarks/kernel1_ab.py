@@ -3,6 +3,7 @@ source, on one card.
 
     python -m grail_tpu_torch.benchmarks.kernel1_ab turns OLD.cu
     python -m grail_tpu_torch.benchmarks.kernel1_ab phases SRC.cu
+    python -m grail_tpu_torch.benchmarks.kernel1_ab kcar SEED
 
 OLD.cu is a fused_synth.cu with the same C interface, built beside its own
 seq_freq.cuh, for example the parent commit's, unpacked from git into a
@@ -32,6 +33,16 @@ carrier, polyBLEP + coefficients, the feed-forward barrier, the recurrence
 and the output. For the pipeline (the checkout's source): the consumer's
 wait for a full buffer and the rest of its time, the producers' wait for
 an empty buffer and their whole time.
+
+kcar: the exact carrier's route at the benchmark's sentences shape, the
+first batch of portbench's sentences mix from SEED (64 texts, voice plain,
+english; run from the repository's root): kernel 1 `kcar` unsplit on 64
+lanes against the split, the seam pre-pass (synth/csrc/kcar_seam.cu) and
+kernel 1 on S * 64 lanes, each by CUDA events (median of 5), the seam
+pre-pass also per step of its depth (its last seam); the split program as
+the route enqueues it (`api._split_program`: the lanes' glue, the two
+kernels); the plain seam pre-pass on the card over the first 65,536 steps
+(host clock, once); the SM clock that nvidia-smi reads after the timing.
 
 One JSON line per shape, then one with all of them; every line names the
 card (nvidia-smi's name and power limit).
@@ -398,16 +409,80 @@ def phases(src: Path):
     return res
 
 
+def kcar(seed: int):
+    """The kcar route at the sentences shape (see the module doc)."""
+    import time
+
+    import grail_tpu_torch as g
+    import grail_tpu_torch.api as papi
+    from portbench.traffic import generator
+
+    from ..synth import kernel_fused as kf
+    from ..synth.schedule import device_window
+
+    dev = torch.device("cuda", 0)
+    card = _card()
+    texts = generator.batches(generator.load_mix("sentences"), seed, 1)[0]
+    v = g.get_voice("plain")
+    b = papi._Batch([papi.score_from_phoneme_elems(
+        g.text_to_phoneme_elems(t, v, "english"), v) for t in texts], v,
+        list(range(len(texts))))
+    _, carrier, S, T = g.route(b.B, max(b.Ns), None, dev, b.sr)
+    inc, W = v.jitter_frequency, papi.WARMUP
+    tables = b.tables(T, dev)
+    sched = papi._split_sched(inc, T, S, dev)
+    pre = sched[0]
+    Ts = T // S
+    seams = (Ts - W, Ts, S - 1)
+    depth = Ts - W + (S - 2) * Ts
+    lanes, seg, state, q, g0, _ = papi._split_lanes(
+        tables, T, S, "kernel", inc, sched=sched, kcar=True)
+    sf, si = kf.state_rows(state, q)
+    T1 = papi._round_up(max(b.Ns), papi.BLOCK_SIZE)
+    tab1 = b.tables(T1, dev)
+    phi1, cell1 = device_window(inc, 0, T1, dev)
+    z = (torch.zeros(b.B, 24, device=dev),
+         torch.zeros(b.B, 3, dtype=torch.int32, device=dev))
+    ms = {
+        "seam": _ms(lambda: kf.kcar_seam_cuda(tables, *pre, *seams), 1),
+        "split_kernel1": _ms(lambda: kf.fused_synth_cuda(
+            lanes, *seg, sf, si, Ts + W, True, g0=g0), 1),
+        "split_program": _ms(lambda: papi._split_program(
+            tables, T, S, "kernel", inc, sched=sched, kcar=True), 1),
+        "unsplit_kernel1": _ms(lambda: kf.fused_synth_cuda(
+            tab1, phi1, cell1, *z, T1, True), 1)}
+    t0 = time.perf_counter()
+    kf.kcar_seam_reference(tables, *pre, 65536, 1, 1)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    r = {"shape": f"kcar B={b.B} maxN={max(b.Ns)}", "carrier": carrier,
+         "S": S, "T": T, "T_unsplit": T1, "seam_depth": depth,
+         "lane_samples_past_end": int(sum(T1 - n for n in b.Ns)),
+         "ms": ms, "seam_ns_per_step": ms["seam"] * 1e6 / depth,
+         "plain_seam_s_65536_steps": plain_s, "sm_clock": clocks,
+         "seed": seed, "card": card}
+    print(json.dumps(r), flush=True)
+    return r
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 2 or argv[0] not in ("turns", "phases"):
+    if len(argv) != 2 or argv[0] not in ("turns", "phases", "kcar"):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel1_ab: needs a CUDA device", file=sys.stderr)
         return 1
     torch.cuda.set_device(0)
-    res = (turns if argv[0] == "turns" else phases)(Path(argv[1]).resolve())
+    if argv[0] == "kcar":
+        res = kcar(int(argv[1]))
+    else:
+        res = (turns if argv[0] == "turns" else phases)(
+            Path(argv[1]).resolve())
     print(json.dumps({argv[0]: res}), flush=True)
     return 0
 

@@ -22,8 +22,11 @@ The spans of the batch path (`api.py`), at most eight a call:
                 `native.native_drift_boundaries` adds up over the texts;
   * `prep`      the frontend's end to the call's return: `synthesize_scores`
                 (padding, `route`, the program, the output slices), with the
-                route's `carrier`, `S` and `T`; a root of its own when
-                `synthesize_scores` is called directly;
+                route's `carrier`, `S` and `T`, and on the split exact
+                carrier (`carrier` 'kcar', S > 1) `kcar_seam_samples`, the
+                lane-samples the seam pre-pass stepped (B times its last
+                seam); a root of its own when `synthesize_scores` is called
+                directly;
   * `track`     in `prep`, for one utterance that takes the host carrier
                 track (`api._carrier_track_for`): the memo's look-up and, on
                 a miss, the native pre-pass, with the track's `samples` and
@@ -35,7 +38,8 @@ The spans of the batch path (`api.py`), at most eight a call:
   * `schedule`  in `prep`: the jitter schedule's window on the device
                 (`device_window`; `hit` says whether its cache held it);
   * `launch`    in `prep`: the program's enqueue (`synth_fused`, or the
-                split's lanes, kernel 2's pre-pass and kernel 1).
+                split's lanes, its seam pre-pass (kernel 2 for Q32,
+                kcar_seam.cu for the exact carrier) and kernel 1).
 
 The fused backend opens all four of `prep`'s spans; the core, xla and scan
 backends only `lattices`.

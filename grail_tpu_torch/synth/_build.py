@@ -45,8 +45,8 @@ build_info = {"seconds": None, "log": "", "path": None}
 # must show a path went through the kernels set the counts to 0 before it
 # and read them after
 LAUNCHES = {"fused_synth": 0, "fused_synth_carry": 0, "fused_synth_track": 0,
-            "phase_q32_pre": 0, "synth_core": 0, "fma_peak": 0,
-            "carrier_scan": 0, "jsched_scan": 0}
+            "phase_q32_pre": 0, "kcar_seam": 0, "synth_core": 0,
+            "fma_peak": 0, "carrier_scan": 0, "jsched_scan": 0}
 
 
 def _nvcc() -> str:
@@ -73,6 +73,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.grail_phase_q32_pre_geometry.argtypes = ([i] * 4
                                                  + [ctypes.POINTER(i)] * 4)
     lib.grail_phase_q32_pre_geometry.restype = i
+    lib.grail_kcar_seam.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.grail_kcar_seam.restype = i
     lib.grail_synth_core.argtypes = [p] * 14 + [i] * 2 + [p]
     lib.grail_synth_core.restype = i
     lib.grail_synth_core_geometry.argtypes = [i] + [ctypes.POINTER(i)] * 6

@@ -13,17 +13,19 @@
 // and the sequential one-pole lowpass + 8-formant SVF recurrence. Each
 // lane may start at a sample offset g0 and read its own row of the
 // schedule: the overlap-save split runs S time segments of each utterance
-// as S lanes (s-major), seeded with exact phases by phase_q32_pre.cu.
+// as S lanes (s-major), seeded with exact phases: the Q32 phase by
+// phase_q32_pre.cu, the kcar phase (si column 2) by kcar_seam.cu, which
+// steps the same f32 recurrence over the same frequencies to each
+// segment's first sample, so a split kcar lane's carrier is the unsplit
+// lane's bit for bit.
 //
 // In 'host_track' mode (car != null) the per-sample carrier phase is not
 // integrated here at all: it is the reference's own f32 recurrence, run once
 // on the host over the whole utterance (the native pre-pass), and each lane
 // reads its window of that track, addressed exactly as the schedule is (row
-// b / lanes_per_row, row_stride apart). A track gives every segment of the
-// split its exact phase, which the kcar recurrence cannot (it has no seam
-// value to start from), so the solo long-form route keeps the split and
-// fills the card. Neither the Q32 warp scan nor the kcar loop runs, and the
-// carried Q32 and f32 phases pass through unchanged.
+// b / lanes_per_row, row_stride apart), so the solo long-form route splits
+// with no device pre-pass. Neither the Q32 warp scan nor the kcar loop
+// runs, and the carried Q32 and f32 phases pass through unchanged.
 //
 // In 'carry' mode no schedule is read: each lane carries its jitter phase
 // and absolute lattice cell in si columns 3-4, and per chunk one thread

@@ -27,8 +27,9 @@ accumulator, the reference's f32 recurrence stepped in the kernel (`kcar`),
 or, in the 'host_track' mode, a per-sample f32 track built on the host
 (`carrier`: the native pre-pass, oracle/native.py), laid out and addressed
 as the schedule is. A track gives every lane its exact phase at any offset,
-so the solo long-form route keeps the overlap-save split with it, which the
-in-kernel recurrence cannot (it has no phase to start a segment from).
+so the solo long-form route keeps the overlap-save split with it. The
+in-kernel recurrence splits too: each segment starts from its seam phase,
+the exact f32 phase at its first sample (below).
 
 Two implementations with one signature, (tables, phi, cell, sf, si, T, kcar,
 g0, lat_base, inc, carrier) -> (audio [B, T], sf [B, 24], si [B, 3 or 5]);
@@ -47,10 +48,13 @@ device, the plain version for the CPU. A lane may start at a sample offset
 `g0` and read its own schedule row, which is how the overlap-save split
 (api._synthesize_split) runs S segments of each utterance as S lanes.
 
-The split's seam phases come from the pre-pass `phase_q32_pre_block`: the
-Q32 integral of the same frequency stream (phases A-B, `freq_chain`), from
-the kernel synth/csrc/phase_q32_pre.cu or its plain version
-`phase_q32_pre_reference`.
+The split's seam phases come from a pre-pass over the same frequency stream
+(phases A-B, `freq_chain`): for the Q32 carrier `phase_q32_pre_block`, its
+integral, from the kernel synth/csrc/phase_q32_pre.cu or its plain version
+`phase_q32_pre_reference`; for the exact f32 carrier (kcar)
+`kcar_seam_phases`, the reference's f32 recurrence stepped to each seam,
+from the kernel synth/csrc/kcar_seam.cu or its plain version
+`kcar_seam_reference`.
 
 Carried state: sf rows are lp[8], b[8], c[8]; si holds uint32 bit patterns
 as int32: 0 the Q32 carrier phase, 1 the Lehmer seed, 2 the f32 carrier
@@ -76,6 +80,7 @@ from .synthesize import _INV_Q32, _Q32, SynthState, q32_carrier
 CHUNK = 128                  # samples per kernel chunk (= producer threads)
 CHUNK_PRE = 1024             # samples per pre-pass chunk sum
 _MIN_LAT_ROWS = 16           # lattices padded to at least this many rows
+_SEAM_BLOCK = 8192           # samples per block of the plain seam pre-pass
 
 
 class FusedTables(NamedTuple):
@@ -526,6 +531,50 @@ def phase_q32_pre_reference(tables: FusedTables, phi: torch.Tensor,
     return fq.view(B, T // CHUNK_PRE, CHUNK_PRE).sum(-1) & MASK32
 
 
+def _seam_depth(first: int, stride: int, count: int) -> int:
+    """The steps the seam pre-pass walks (its last seam), after checking
+    the seams: first >= 0, stride >= 1, count >= 1, the last in an int32."""
+    if first < 0 or stride < 1 or count < 1:
+        raise ValueError(f"need first >= 0, stride >= 1 and count >= 1, got "
+                         f"{first}, {stride}, {count}")
+    last = first + (count - 1) * stride
+    if last >= 2 ** 31:
+        raise ValueError(f"the last seam {last} exceeds an int32")
+    return last
+
+
+def kcar_seam_reference(tables: FusedTables, phi: torch.Tensor,
+                        cell: torch.Tensor, first: int, stride: int,
+                        count: int) -> torch.Tensor:
+    """Plain PyTorch version of the seam pre-pass kernel: per utterance,
+    the reference's f32 carrier (`f32_carrier`) over the fused chain's own
+    frequency stream (`freq_chain`) of samples 1, 2, ..., from phase 0, and
+    its phase after first + i * stride steps, i < count (the pre-update
+    phase of sample first + i * stride + 1). (phi, cell) is the schedule of
+    samples 1.. [>= the last seam]. Returns f32 [count, B]. It runs the
+    chain in blocks of _SEAM_BLOCK samples, the phase carried between."""
+    last = _seam_depth(first, stride, count)
+    B = tables.n.shape[0]
+    dev = tables.n.device
+    seams = [first + i * stride for i in range(count)]
+    out = torch.empty(count, B, dtype=torch.float32, device=dev)
+    p = torch.zeros(B, dtype=torch.float32, device=dev)
+    for i0 in range(0, last, _SEAM_BLOCK):
+        m = min(_SEAM_BLOCK, last - i0)
+        g0 = torch.full((B,), i0, dtype=torch.int32, device=dev)
+        fc_ = freq_chain(tables, _k1(B, m, g0, dev), phi[i0:i0 + m],
+                         cell[i0:i0 + m])
+        track, p_next = f32_carrier(fc_.freq_j, p)
+        for j, s in enumerate(seams):
+            if i0 <= s < i0 + m:
+                out[j] = track[:, s - i0]
+        p = p_next
+    for j, s in enumerate(seams):
+        if s == last:
+            out[j] = p
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
@@ -723,6 +772,41 @@ def phase_q32_pre_cuda(tables: FusedTables, phi: torch.Tensor,
     return _i32_to_u32(sums)
 
 
+def kcar_seam_cuda(tables: FusedTables, phi: torch.Tensor,
+                   cell: torch.Tensor, first: int, stride: int,
+                   count: int) -> torch.Tensor:
+    """Launch synth/csrc/kcar_seam.cu on the current stream: the seam
+    phases of kcar_seam_reference, f32 [count, B]. (phi, cell) is the
+    schedule of samples 1.., contiguous [>= the last seam]."""
+    import ctypes
+
+    from ._build import load_library
+
+    dev = tables.n.device
+    B, E, W = _check_tables(tables, dev)
+    last = _seam_depth(first, stride, count)
+    Tp = phi.shape[0] if phi.dim() == 1 else -1
+    if Tp < last:
+        raise ValueError(f"phi has shape {tuple(phi.shape)}, expected 1-D "
+                         f"with at least {last} samples")
+    _check("phi", phi, torch.float32, (Tp,), dev)
+    _check("cell", cell, torch.int32, (Tp,), dev)
+
+    lib = load_library()
+    out = torch.empty(count, B, dtype=torch.float32, device=dev)
+    p = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.grail_kcar_seam(
+            p(tables.n.data_ptr()), p(tables.scal.data_ptr()),
+            p(tables.latp.data_ptr()), p(tables.par.data_ptr()),
+            p(phi.data_ptr()), p(cell.data_ptr()), p(out.data_ptr()),
+            B, E, W, first, stride, count, p(stream))
+        LAUNCHES["kcar_seam"] += 1
+    raise_on(lib, rc, "kcar_seam kernel launch")
+    return out
+
+
 def fused_synth_slots(device) -> int:
     """Thread blocks of the fused kernel the card holds at once: the
     occupancy API's resident blocks per SM, at the launch's own thread count
@@ -775,6 +859,21 @@ def phase_q32_pre_geometry(B: int, E: int, W: int, T: int, device) -> dict:
 IMPLEMENTATIONS = {"kernel": fused_synth_cuda, "plain": synth_fused_reference}
 PRE_IMPLEMENTATIONS = {"kernel": phase_q32_pre_cuda,
                        "plain": phase_q32_pre_reference}
+SEAM_IMPLEMENTATIONS = {"kernel": kcar_seam_cuda,
+                        "plain": kcar_seam_reference}
+
+
+def kcar_seam_phases(tables: FusedTables, sched, first: int, stride: int,
+                     count: int, impl: str) -> torch.Tensor:
+    """The exact f32 carrier phase of every utterance after first + i *
+    stride steps from phase 0, i < count: f32 [count, B], the seams of the
+    split's kcar lanes. `sched` = (phi, cell) for samples 1..; `impl` is
+    'kernel' (kcar_seam_cuda) or 'plain' (kcar_seam_reference), as for
+    synth_fused."""
+    if impl not in SEAM_IMPLEMENTATIONS:
+        raise ValueError(f"impl must be one of {sorted(SEAM_IMPLEMENTATIONS)}"
+                         f", got {impl!r}")
+    return SEAM_IMPLEMENTATIONS[impl](tables, *sched, first, stride, count)
 
 
 def phase_q32_pre_block(tables: FusedTables, sched, T: int, blk: int,
@@ -870,4 +969,6 @@ __all__ = ["CHUNK", "CHUNK_PRE", "LAUNCHES", "FusedTables", "FreqChain",
            "synth_fused_reference", "fused_synth_cuda", "IMPLEMENTATIONS",
            "synth_fused", "state_rows", "phase_q32_pre_reference", "phase_q32_pre_cuda",
            "PRE_IMPLEMENTATIONS", "phase_q32_pre_block", "fused_synth_slots",
-           "fused_synth_geometry", "phase_q32_pre_geometry"]
+           "fused_synth_geometry", "phase_q32_pre_geometry",
+           "kcar_seam_reference", "kcar_seam_cuda", "SEAM_IMPLEMENTATIONS",
+           "kcar_seam_phases"]

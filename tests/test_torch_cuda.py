@@ -137,20 +137,22 @@ def test_synthesize_batch_on_cuda_matches_cpu(cuda):
 
 
 def test_synthesize_batch_exact_carrier_on_cuda_matches_cpu(cuda):
-    # the exact carrier cannot split: the card's route stays unsplit and
-    # launches the fused kernel alone, held against the CPU's same route
+    # the exact carrier splits on the card as Q32 does: one launch of the
+    # seam pre-pass and one of kernel 1, no Q32 pre-pass; held against the
+    # CPU's same split (the CPU's route is unsplit)
     from grail_tpu_torch.utils import sample_error_db
 
-    Ns = [_score_num_samples(g.text_to_score(t), 44100.0)
-          for t in ("ae", "ea")]
-    assert g.route(2, max(Ns), True, cuda, 44100.0)[1:3] == ("kcar", 1)
+    scores = [g.text_to_score(t) for t in ("ae", "ea")]
+    Ns = [_score_num_samples(s, 44100.0) for s in scores]
+    _, carrier, S, _ = g.route(2, max(Ns), True, cuda, 44100.0)
+    assert carrier == "kcar" and S > 1
     n0 = dict(kf.LAUNCHES)
     on_card = g.synthesize_batch(["ae", "ea"], device="cuda",
                                  exact_carrier=True)
-    assert kf.LAUNCHES["fused_synth"] == n0["fused_synth"] + 1
-    assert kf.LAUNCHES["phase_q32_pre"] == n0["phase_q32_pre"]
-    on_cpu = g.synthesize_batch(["ae", "ea"], device="cpu",
-                                exact_carrier=True)
+    assert {k: kf.LAUNCHES[k] - n0[k] for k in n0
+            if kf.LAUNCHES[k] != n0[k]} == {"fused_synth": 1, "kcar_seam": 1}
+    on_cpu = papi._synthesize_split(scores, S=S, device="cpu",
+                                    exact_carrier=True)
     for a, b in zip(on_card, on_cpu):
         assert a.device.type == "cuda" and a.shape == b.shape
         assert sample_error_db(a.cpu().numpy(), b.numpy()) < -100
@@ -194,23 +196,160 @@ def test_seam_phase_equals_unsplit_kernel_phase(cuda):
                            q[n // papi.BLOCK_SIZE])
 
 
-@pytest.mark.parametrize("texts,S", [(("ae", "ea", "aeae"), 4),
-                                     (BENCH_TEXTS, 8)],
-                         ids=["s4", "b64_s8"])
-def test_split_kernel_equals_plain_bitwise(cuda, texts, S):
-    # split lanes: per-lane offsets g0, schedule rows, seam phases, seeds;
-    # also at the main path's split, bench.py's 64 texts on 512 lanes
+@pytest.mark.parametrize("texts,S,kcar", [(("ae", "ea", "aeae"), 4, False),
+                                          (BENCH_TEXTS, 8, False),
+                                          (("ae", "ea", "aeae"), 4, True),
+                                          (BENCH_TEXTS, 8, True)],
+                         ids=["s4", "b64_s8", "kcar_s4", "kcar_b64_s8"])
+def test_split_kernel_equals_plain_bitwise(cuda, texts, S, kcar):
+    # split lanes: per-lane offsets g0, schedule rows, seam phases (Q32, or
+    # the exact carrier's from the seam pre-pass), seeds; also at the main
+    # path's split, bench.py's 64 texts on 512 lanes
     tables, _, _, T = _split_setup(cuda, S, texts, list(range(len(texts))))
     tables_t, (phi, cell), state, q, g0, _ = papi._split_lanes(
-        tables, T, S, "kernel", g.get_voice("generic").jitter_frequency)
+        tables, T, S, "kernel", g.get_voice("generic").jitter_frequency,
+        kcar=kcar)
     sf, si = kf.state_rows(state, q)
-    args = (tables_t, phi, cell, sf, si, T // S + papi.WARMUP, False)
+    args = (tables_t, phi, cell, sf, si, T // S + papi.WARMUP, kcar)
     a, sf_k, si_k = kf.fused_synth_cuda(*args, g0=g0)
     r, sf_r, si_r = kf.synth_fused_reference(*args, g0=g0)
     torch.cuda.synchronize()
     assert torch.equal(si_k, si_r)
     assert torch.equal(sf_k, sf_r)
     assert torch.equal(a, r)
+
+
+def _sentence_batch(cuda):
+    """The first batch of the benchmark's sentences mix
+    (portbench/traffic, seed 4111222333): its 64 texts, their _Batch
+    (voice plain, english, seeds 0..63) and the card's route for it."""
+    from portbench.traffic import generator
+
+    texts = generator.batches(generator.load_mix("sentences"), 4111222333,
+                              1)[0]
+    v = g.get_voice("plain")
+    b = papi._Batch([papi.score_from_phoneme_elems(
+        g.text_to_phoneme_elems(t, v, "english"), v) for t in texts], v,
+        list(range(len(texts))))
+    return texts, b, g.route(b.B, max(b.Ns), None, cuda, b.sr)
+
+
+# the exact carrier's seams: (texts, S; first, stride, count, or None for
+# the split's own). The split at S = 4 ("ae" ends before segment 3: its
+# seam lies in padding, silence at f = 0.25); "ae" shorter than a segment;
+# every step of the first 6,000 (a seam on every wrap there); an odd
+# stride; random tables with every other element's frequency negative
+KCAR_SEAM_CASES = {"split_s4": (("ae", "ea", "aeae"), 4, None),
+                   "short_lane_s2": (("ae", "aeaeaeae"), 2, None),
+                   "every_step": (("ae", "ea", "aeae"), 2, (0, 1, 6000)),
+                   "odd_stride": (("ae", "ea", "aeae"), 4, (4095, 12289, 5)),
+                   "negative_freq": (None, None, (100, 3001, 7))}
+
+
+@pytest.mark.parametrize("case", sorted(KCAR_SEAM_CASES))
+def test_kcar_seam_kernel_equals_plain_bitwise(cuda, case):
+    texts, S, seams = KCAR_SEAM_CASES[case]
+    if texts is None:
+        tables, pre = _pre_tables(cuda, 3, 12, 40, 28672, repeated=True)
+        tables.scal[:, 1::2, 0] *= -1
+    else:
+        tables, pre, _, T = _split_setup(cuda, S, texts,
+                                         list(range(len(texts))))
+        seams = seams or (T // S - papi.WARMUP, T // S, S - 1)
+    n0 = dict(kf.LAUNCHES)
+    k = kf.kcar_seam_phases(tables, pre, *seams, "kernel")
+    assert {k_: kf.LAUNCHES[k_] - n0[k_] for k_ in n0
+            if kf.LAUNCHES[k_] != n0[k_]} == {"kcar_seam": 1}
+    r = kf.kcar_seam_phases(tables, pre, *seams, "plain")
+    torch.cuda.synchronize()
+    assert k.shape == r.shape == (seams[2], tables.n.shape[0])
+    assert torch.equal(k, r)
+
+
+@pytest.mark.parametrize("case", ["s4", "short_lane_s2", "sentences"])
+def test_kcar_seams_equal_unsplit_kernel_phase(cuda, case):
+    # each seam is the f32 phase that unsplit kernel 1 (kcar) holds after
+    # g0 samples, bit for bit, also at the sentences mix's split (64 lanes
+    # to ~120 s, S = 8); and segment 0's pre-roll (silence from phase 0)
+    # brings kernel 1 back to phase 0 at sample 1, the unsplit start
+    if case == "sentences":
+        _, b, (_, carrier, S, T) = _sentence_batch(cuda)
+        assert (carrier, S) == ("kcar", 8)
+        tables = b.tables(T, cuda)
+        pre, seg = papi._split_sched(b.v0.jitter_frequency, T, S, cuda)
+    else:
+        S, texts = (4, ("ae", "ea", "aeae")) if case == "s4" else (
+            2, ("ae", "aeaeaeae"))
+        tables, pre, seg, T = _split_setup(cuda, S, texts,
+                                           list(range(len(texts))))
+    B = tables.n.shape[0]
+    Ts, W = T // S, papi.WARMUP
+    seams = kf.kcar_seam_phases(tables, pre, Ts - W, Ts, S - 1, "kernel")
+    sf = torch.zeros(B, 24, device=cuda)
+    si = torch.zeros(B, 3, dtype=torch.int32, device=cuda)
+    for s in range(1, S):
+        n = s * Ts - W
+        _, _, si_o = kf.fused_synth_cuda(tables, pre[0][:n], pre[1][:n],
+                                         sf, si, n, True)
+        torch.cuda.synchronize()
+        assert torch.equal(si_o[:, 2], seams[s - 1].view(torch.int32)), s
+    g0 = torch.full((B,), -W, dtype=torch.int32, device=cuda)
+    _, _, si_o = kf.fused_synth_cuda(tables, seg[0][0, :W], seg[1][0, :W],
+                                     sf, si, W, True, g0=g0)
+    torch.cuda.synchronize()
+    assert torch.equal(si_o[:, 2], si[:, 2])
+
+
+def test_kcar_seam_on_a_wrap_equals_unsplit_kernel_phase(cuda):
+    # a seam just after a wrap (the step into it subtracted 1) at kernel 1's
+    # chunk grain: the seam pre-pass's phase there is unsplit kernel 1's,
+    # bit for bit; the wraps are found from the pre-pass at every step
+    tables, pre, _, _ = _split_setup(cuda, 8, BENCH_TEXTS, list(range(64)))
+    L = 65536
+    every = kf.kcar_seam_phases(tables, pre, 1, 1, L, "kernel")
+    wrapped = (every[1:] < every[:-1]).any(1).cpu()   # into step i + 2
+    m = next(m for m in range(128, L + 1, 128) if wrapped[m - 2])
+    B = tables.n.shape[0]
+    sf = torch.zeros(B, 24, device=cuda)
+    si = torch.zeros(B, 3, dtype=torch.int32, device=cuda)
+    _, _, si_o = kf.fused_synth_cuda(tables, pre[0][:m], pre[1][:m], sf, si,
+                                     m, True)
+    seam = kf.kcar_seam_phases(tables, pre, m, 1, 1, "kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(si_o[:, 2], every[m - 1].view(torch.int32))
+    assert torch.equal(seam[0], every[m - 1])
+
+
+def test_kcar_split_route_on_sentences(cuda):
+    # the benchmark's sentences (past 30 s): the route splits the exact
+    # carrier 8 ways, one seam pre-pass and one kernel 1 launch a call;
+    # against the same batch unsplit on the card within 1e-4 a sample (the
+    # carrier is the same bit for bit; the filters' pre-roll differs)
+    texts, b, (impl, carrier, S, T) = _sentence_batch(cuda)
+    assert (impl, carrier, S) == ("kernel", "kcar", 8)
+    n0 = dict(kf.LAUNCHES)
+    split = g.synthesize_batch(texts, "plain", "english",
+                               seeds=list(range(len(texts))), device="cuda")
+    torch.cuda.synchronize()
+    assert {k: kf.LAUNCHES[k] - n0[k] for k in n0
+            if kf.LAUNCHES[k] != n0[k]} == {"fused_synth": 1, "kcar_seam": 1}
+    unsplit = b.run("kernel", "kcar", 1,
+                    _round_up(max(b.Ns), papi.BLOCK_SIZE), cuda)
+    for a, r in zip(split, unsplit):
+        assert a.shape == r.shape
+        assert float((a - r).abs().max()) < 1e-4
+
+
+def test_kcar_seam_wrapper_rejects_bad_inputs(cuda):
+    tables, (phi, cell), _, T = _split_setup(cuda, 2)
+    with pytest.raises(ValueError, match="at least"):
+        kf.kcar_seam_cuda(tables, phi[:100], cell[:100], 0, 4096, 2)
+    with pytest.raises(ValueError, match="stride"):
+        kf.kcar_seam_cuda(tables, phi, cell, 0, 0, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        kf.kcar_seam_cuda(tables, phi.double(), cell, 0, 4096, 2)
+    with pytest.raises(ValueError, match="device"):
+        kf.kcar_seam_cuda(tables, phi, cell.cpu(), 0, 4096, 2)
 
 
 def test_wrapper_rejects_bad_split_inputs(cuda):
@@ -1213,7 +1352,7 @@ def test_long_form_route_on_the_card(cuda, tmp_path, monkeypatch):
     assert np.abs(a - pcm).max() <= 1.5 / 32767     # one PCM step
     assert spectral_error_db(a, gold_dsp_chain(pel, get_spec("plain"),
                                                0)) < -60
-    assert g.route(1, N, "kernel", cuda, sr)[1:3] == ("kcar", 1)
+    assert g.route(1, N, "kernel", cuda, sr)[1:3] == ("kcar", S)
     k = g.synthesize(LONG_EN, "plain", "english",
                      exact_carrier="kernel").cpu().numpy()
     assert np.abs(a - k).max() <= 5e-5 * max(1.0, N / sr / 30.0)

@@ -317,7 +317,8 @@ def test_choose_split_properties(slots):
             assert all(est[s] > est[S] for s in est if s < S)
 
 
-def test_route_on_cpu_and_kcar_stay_unsplit():
+def test_route_on_cpu_stays_unsplit_and_kcar_splits_on_the_card(
+        monkeypatch):
     sr = 44100.0
     for B in (1, 2, 64):
         for maxN in (4096, 88200, 356352):
@@ -327,3 +328,119 @@ def test_route_on_cpu_and_kcar_stay_unsplit():
                 "plain", "kcar", 1, papi._round_up(maxN, 4096))
     long_n = int(31 * sr)
     assert papi.route(1, long_n, None, "cpu", sr)[1:3] == ("kcar", 1)
+    # on a card (its 528 slots stand in for the occupancy query) the exact
+    # carrier takes choose_split's S as Q32 does; S = 1 where that gives 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(papi, "fused_synth_slots", lambda dev: 528)
+    for B in (1, 2, 64, 256, 528, 600):
+        for maxN in (4096, 88200, long_n, int(120 * sr)):
+            want = papi.choose_split(B, maxN, 528)
+            for exact in (True, "kernel"):
+                assert papi.route(B, maxN, exact, "cuda", sr) == (
+                    "kernel", "kcar") + want
+            if maxN > 30 * sr:
+                assert papi.route(B, maxN, None, "cuda", sr) == (
+                    "kernel", "kcar") + want
+    assert papi.route(64, int(120 * sr), None, "cuda", sr)[1:3] == ("kcar", 8)
+    assert papi.route(256, int(120 * sr), None, "cuda", sr)[1:3] == (
+        "kcar", 2)
+    assert papi.route(528, int(120 * sr), None, "cuda", sr)[1:3] == (
+        "kcar", 1)
+    assert papi.route(2, 4096, True, "cuda", sr)[1:3] == ("kcar", 1)
+
+
+def _kcar_case(S, texts):
+    """Plain tables and the split schedule of `texts` (generic voice) at S
+    segments, and the unsplit plain carrier's track over samples 1..T."""
+    b = papi._Batch([g.text_to_score(t) for t in texts], "generic",
+                    list(range(len(texts))))
+    T = papi._round_up(max(b.Ns), S * papi.BLOCK_SIZE)
+    tables = b.tables(T, "cpu")
+    pre, seg = papi._split_sched(b.v0.jitter_frequency, T, S, "cpu")
+    B = len(texts)
+    fc = pk.freq_chain(tables, pk._k1(B, T, None, "cpu"), *pre)
+    track, _ = pk.f32_carrier(fc.freq_j, torch.zeros(B))
+    return b, T, tables, pre, seg, track
+
+
+# the seams: (texts, S; first, stride, count or None for the split's own).
+# The split's at S = 4 ("ae" ends before segment 3: its seam lies in the
+# padding, silence at f = 0.25); S = 2 with "ae" shorter than a segment;
+# seams on either side of the plain version's block boundaries; every step
+# of the first 3,000 (every wrap there); an odd stride
+SEAM_CASES = {"split_s4": (("ae", "ea", "aeae"), 4, None),
+              "short_lane_s2": (("ae", "aeaeaeae"), 2, None),
+              "block_edges": (("ae", "ea"), 2,
+                              (pk._SEAM_BLOCK - 1, pk._SEAM_BLOCK, 3)),
+              "every_step": (("ae", "ea"), 2, (0, 1, 3000)),
+              "odd_stride": (("ae", "ea"), 2, (4095, 12289, 5))}
+
+
+@pytest.mark.parametrize("case", sorted(SEAM_CASES))
+def test_kcar_seams_plain_equal_unsplit_carrier(case):
+    # the seam pre-pass's phase after m steps is the unsplit f32 carrier's
+    # pre-update phase at sample m + 1, bit for bit: one frequency stream
+    # (freq_chain), one recurrence (f32_carrier), carried across blocks
+    texts, S, seams = SEAM_CASES[case]
+    b, T, tables, pre, _, track = _kcar_case(S, texts)
+    if seams is None:
+        seams = (T // S - papi.WARMUP, T // S, S - 1)
+    first, stride, count = seams
+    got = pk.kcar_seam_phases(tables, pre, first, stride, count, "plain")
+    assert got.shape == (count, len(texts)) and got.dtype == torch.float32
+    for i in range(count):
+        assert torch.equal(got[i], track[:, first + i * stride])
+    if case == "split_s4":
+        assert T - T // S - papi.WARMUP > b.Ns[0]      # a seam past "ae"
+    if case == "short_lane_s2":
+        assert b.Ns[0] < T // S                        # shorter than Ts
+    if case == "every_step":           # seams on wraps, where the phase falls
+        assert (track[:, 1:3000] < track[:, :2999]).sum() > 10
+
+
+def test_kcar_split_pre_roll_returns_to_phase_zero():
+    # segment 0 starts W samples before the stream at phase 0: its pre-roll
+    # is silence (f = 0.25 exactly), so the phase is 0 again at sample 1,
+    # the unsplit lane's starting phase
+    b, T, tables, _, seg, _ = _kcar_case(2, ("ae", "ea"))
+    W = papi.WARMUP
+    sf = torch.zeros(2, 24)
+    si = torch.zeros(2, 3, dtype=torch.int32)
+    g0 = torch.full((2,), -W, dtype=torch.int32)
+    _, _, si_o = pk.synth_fused_reference(
+        tables, seg[0][0, :W].contiguous(), seg[1][0, :W].contiguous(), sf,
+        si, W, True, g0=g0)
+    assert torch.equal(si_o[:, 2], torch.zeros(2, dtype=torch.int32))
+
+
+def test_kcar_seam_dispatch():
+    _, T, tables, pre, _, _ = _kcar_case(2, ("ae",))
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.kcar_seam_phases(tables, pre, 0, 4096, 1, "kernel")
+    with pytest.raises(ValueError, match="impl"):
+        pk.kcar_seam_phases(tables, pre, 0, 4096, 1, "cuda")
+    for seams in ((-1, 1, 1), (0, 0, 2), (0, 1, 0), (0, 2 ** 30, 3)):
+        with pytest.raises(ValueError, match="first|int32"):
+            pk.kcar_seam_phases(tables, pre, *seams, "plain")
+
+
+@functools.lru_cache(maxsize=None)
+def _kcar_unsplit():
+    c = _case(2)
+    return [o.numpy() for o in papi.synthesize_scores(
+        c["pscores"], c["pvoices"], SEEDS, device="cpu", exact_carrier=True)]
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_split_kcar_matches_port_unsplit(S):
+    # the exact carrier split at S segments, each seeded by the seam
+    # pre-pass, against the unsplit exact carrier: the carrier is the same
+    # bit for bit, so the bounds are test_split_matches_port_unsplit's, the
+    # filters' pre-roll alone
+    c = _case(S)
+    out = papi._synthesize_split(c["pscores"], c["pvoices"], SEEDS, S=S,
+                                 device="cpu", exact_carrier=True)
+    for o, r in zip(out, _kcar_unsplit()):
+        assert o.shape == r.shape
+        assert sample_error_db(o.numpy(), r) < -90
+        assert np.abs(o.numpy() - r).max() < 1e-4

@@ -93,6 +93,25 @@ def test_the_split_builds_its_schedule_under_its_own_span(no_launch,
     assert {n for n, s in got.items() if s.parent == "prep"} == PREP_CHILDREN
 
 
+def test_the_kcar_split_tallies_its_seam_samples(no_launch, monkeypatch):
+    # the exact carrier's split, as the card routes a batch past 30 s: the
+    # seam pre-pass (its plain version here) steps each utterance to its
+    # last seam, T - T/S - W samples, and `prep` counts the lane-samples
+    T = {}
+
+    def route(B, maxN, *a, **kw):
+        T["T"] = papi._round_up(maxN, 4 * papi.BLOCK_SIZE)
+        return "plain", "kcar", 4, T["T"]
+
+    monkeypatch.setattr(papi, "route", route)
+    profiled(lambda: g.synthesize_batch(["ae", "ea"], device="cpu"))
+    got = _nested(trace.spans())
+    assert got["prep"].attrs["carrier"] == "kcar"
+    assert got["prep"].attrs["kcar_seam_samples"] == 2 * (
+        T["T"] - T["T"] // 4 - papi.WARMUP)
+    assert "kcar_seam_samples" not in got["launch"].attrs
+
+
 @pytest.mark.parametrize("case", ["no profiler", "frontend alone"])
 def test_nothing_is_recorded(case, no_launch):
     if case == "no profiler":
