@@ -74,6 +74,7 @@ from ..text.intonate import PhonemeElem, intonate
 from ..text.phonemes import Phoneme
 from ..text.transcribe import transcribe_chars, transcribe_partial
 from ..voices import Voice, get_voice
+from .trace import annotate, span, tally
 
 class _IncrementalLattice:
     """Value-noise lattices grown on demand (unbounded sessions), with a
@@ -710,6 +711,7 @@ class StreamSession:
         merged = merge_glides(tail + list(pelems))
         self._elements = (self._elements[:len(self._elements) - len(tail)]
                           + merged)
+        tally(elems=len(merged) - len(tail))
         self._bump_rev()
 
     def _trim_horizon_tail(self) -> None:
@@ -846,6 +848,7 @@ class StreamSession:
             # carry the countdown residual at the drop point so the
             # remaining boundaries stay those of the continuous stream
             self._drift_t0 = np.float32(resid[drop - 1])
+            tally(rebases=1)
             self._bump_rev()
 
     def _cell_bound(self, pos: int) -> int:
@@ -1366,11 +1369,13 @@ class StreamPool:
         return self._serve_lock if self._serving else contextlib.nullcontext()
 
     def feed(self, i: int, text: str, parse_commands: bool = False) -> None:
-        with self._feed_lock():
+        with span("feed", session=i, what="feed", elems=0), \
+                self._feed_lock():
             self.sessions[i].feed(text, parse_commands=parse_commands)
 
     def flush(self, i: Optional[int] = None) -> None:
-        with self._feed_lock():
+        with span("feed", session=i, what="flush", elems=0), \
+                self._feed_lock():
             for s in (self.sessions if i is None else [self.sessions[i]]):
                 s.flush()
 
@@ -1387,7 +1392,9 @@ class StreamPool:
         if (q is not None and q[1] == blk and q[4] == self.pin_elems
                 and self._mut == self._quiet_mut
                 and self._local[0]._jitter_pos <= q[0]):
+            annotate(full=False)
             return self._dev
+        annotate(full=True)
         self._quiet = None
         dev = self._prepare_tick_full(blk)
         # arm AFTER the full pass: maintenance itself bumps revs (rebases)
@@ -1443,6 +1450,7 @@ class StreamPool:
         small = changed is not None and 0 < len(changed) <= min(8, nl)
         idx_list = changed if small else range(nl)
         sess = [local[i] for i in idx_list]
+        tally(lattice_rows_uploaded=len(sess), full_uploads=int(not small))
         for s in sess:
             s._lattice.ensure(cells)
         lat = JitterLattice(*(np.stack(f) for f in zip(
@@ -1484,6 +1492,7 @@ class StreamPool:
         small = changed is not None and 0 < len(changed) <= min(8, nl)
         idx_list = changed if small else range(nl)
         sess = [local[i] for i in idx_list]
+        tally(score_rows_uploaded=len(sess), full_uploads=int(not small))
         tabs = kf.score_tables(
             stack_scores([s._build_score(E) for s in sess]),
             _jparams([s.voice for s in sess], inc), self.sample_rate)
@@ -1516,19 +1525,29 @@ class StreamPool:
         k*block of latency for one launch and one host pass per k blocks;
         the state continues exactly either way, so mixing k values is
         safe."""
+        with span("tick", blocks=int(k)):
+            out = self._advance(int(k))
+            return out.cpu().numpy() if sync else out
+
+    def _advance(self, k: int) -> torch.Tensor:
+        """Advance every session by k blocks: the host pass (span `host`),
+        then the launch and the output conversion's enqueue (span
+        `launch`). Returns the audio on the device."""
         if self._serving:
             raise RuntimeError("read_block() while serve mode is live would "
                                "race the real-time thread for the carried "
                                "state; use serve_tick() or serve_stop() "
                                "first")
-        blk = self.block * int(k)
-        dev = self._prepare_tick(blk)
-        out, self._sf, self._si = self._tick_program(blk)(dev, self._sf,
-                                                          self._si)
-        dev["offsets"].add_(blk)       # advanced on the device
+        blk = self.block * k
+        with span("host"):
+            dev = self._prepare_tick(blk)
+        with span("launch"):
+            out, self._sf, self._si = self._tick_program(blk)(dev, self._sf,
+                                                              self._si)
+            dev["offsets"].add_(blk)       # advanced on the device
         # all sessions advance in lockstep: ONE pool-level lag integer
         self._lag_samples += blk
-        return out.cpu().numpy() if sync else out
+        return out
 
     # -- depth-2 pipelined serving ----------------------------------------
 
@@ -1541,9 +1560,10 @@ class StreamPool:
         if prev is None:
             return None
         host, event = prev
-        if event is not None:
-            event.synchronize()
-        return host.numpy()
+        with span("collect"):
+            if event is not None:
+                event.synchronize()
+            return host.numpy()
 
     def dispatch_tick(self) -> None:
         """Launch the next tick and start its audio's device->host copy
@@ -1552,15 +1572,16 @@ class StreamPool:
         uncollected collects and discards it first."""
         if self._inflight is not None:
             self.collect()
-        out = self.read_block(sync=False)
-        if out.device.type != "cuda":
-            self._inflight = (out, None)
-            return
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(out.device))
-        self._inflight = (host, event)
+        with span("tick", blocks=1):
+            out = self._advance(1)
+            if out.device.type != "cuda":
+                self._inflight = (out, None)
+                return
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(out.device))
+            self._inflight = (host, event)
 
     def tick_pipelined(self):
         """One serving tick with a depth-2 pipeline: collects the PREVIOUS

@@ -1,4 +1,4 @@
-"""Spans of one `synthesize_batch` call, on the host clock and the profiler's.
+"""Spans of the batch path and the pool, on the host clock and the profiler's.
 
 How to see them: run the calls under `torch.profiler.profile` (CPU and,
 on a card, CUDA activities), export the Chrome trace
@@ -44,6 +44,32 @@ The spans of the batch path (`api.py`), at most eight a call:
 The fused backend opens all four of `prep`'s spans; the core, xla and scan
 backends only `lattices`.
 
+The spans of the pool (`runtime/stream.py`'s StreamPool), four a pipelined
+tick and two a fed text:
+
+  * `tick`      a root: `read_blocks` (attribute `blocks`), or
+                `dispatch_tick` (its block, the pinned host buffer and the
+                copy's enqueue);
+  * `host`      in `tick`: `_prepare_tick`, the host pass, with `full`
+                (whether the per-session maintenance pass ran, or the one
+                compare of the quiet fast path) and, from the full pass, the
+                tallies `score_rows_uploaded` and `lattice_rows_uploaded`
+                (sessions whose rows went to the device), `full_uploads`
+                (uploads of every session's rows, scores and lattices
+                counted apart) and `rebases` (sessions that dropped played
+                elements);
+  * `launch`    in `tick`: the tick program's enqueue (the carry launch, or
+                the xla tick, and the output conversion) and the offsets'
+                advance;
+  * `collect`   a root: the wait on the previous tick's copy event and the
+                audio handed out;
+  * `feed`      a root: `StreamPool.feed` (`what` 'feed') or `flush`
+                (`what` 'flush'), with the `session` (None: every one) and
+                `elems`, the elements the frontend appended (after the
+                glide merge; `StreamSession._append_phonemes` tallies them).
+
+Serve mode's frontend cycles and replays record no span (its feeds do).
+
 Besides the profiler's rows, each span is kept in a bounded buffer as a
 `Span`: the call it belongs to (every span under one root shares the root's
 call id), its name, its parent's name (None for a root), its start and end
@@ -62,7 +88,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-MAXLEN = 1 << 16      # spans kept (a 51-s window of 64-text calls holds ~2k)
+MAXLEN = 1 << 16      # spans kept (a 51-s window: ~2k of 64-text calls,
+#                       15-17k of pool ticks and feeds at N = 768)
 PREFIX = "grail."
 
 _recording = torch.autograd._profiler_enabled
