@@ -1168,6 +1168,8 @@ class StreamSession:
 # pool backend names -> the tick's program ('fused_interpret' is grail_tpu's
 # interpreter name for its fused tick)
 _BACKENDS = {"fused": "fused", "fused_interpret": "fused", "xla": "xla"}
+# the lattice group's tables, in JitterLattice's order
+_LAT = ("latp", "latf", "lata")
 
 
 class StreamPool:
@@ -1435,80 +1437,95 @@ class StreamPool:
         self._dev["lat_base"] = self._lat_base_dev
         return self._dev
 
+    def _upload_rows(self, group: Optional[dict], changed, build,
+                     rows_tally: str) -> dict:
+        """The upload rule of both table groups (the scores with the
+        offsets, the lattices with lat_base), each a dict of [nl, ...]
+        device tensors. `changed` lists the local sessions whose rows moved,
+        or is None when the group's structure moved (its first upload, a new
+        E or cell count). `build(sessions)` gives those sessions' rows as a
+        dict of device tensors.
+
+        Only the changed sessions' rows are built, and they are scattered
+        into the group with index_copy_, however many changed (all of them
+        too: the scatter is one device copy of the group); when the
+        structure moved, every session's rows are built and become the
+        group. While serving the scatter goes into a copy of the group: a
+        set that was published may still be read by a queued served
+        tick."""
+        nl = len(self._local)
+        whole = not changed
+        idx = range(nl) if whole else changed
+        rows = build([self._local[i] for i in idx])
+        tally(**{rows_tally: len(idx)}, full_uploads=int(whole))
+        if whole:
+            return rows
+        if self._serving:
+            group = dict(group, **{k: group[k].clone() for k in rows})
+        index = _up(changed, self.device, torch.int64)
+        for k, r in rows.items():
+            group[k].index_copy_(0, index, r)
+        return group
+
     def _upload_lattices(self, cells: int, lat_key) -> None:
-        """Publish the lattice windows and lat_base together. Slides are
-        staggered, so usually one session's version moved: its rows are
-        scattered into the device tables in place (index_copy_); otherwise
-        (first sizing, a new cell count, many slides) everything uploads.
-        While serving, the scatter goes into a copy of the tables: a set
-        that was published may still be read by a queued served tick."""
-        local, nl = self._local, len(self._local)
+        """Publish the lattice windows and lat_base together
+        (_upload_rows): slides change a session's lattice version; first
+        sizing and a new cell count move the structure."""
+        nl = len(self._local)
         prev = self._lat_key
         changed = ([i for i in range(nl) if prev[1][i] != lat_key[1][i]]
                    if (prev is not None and self._lat_dev is not None
                        and prev[0] == cells) else None)
-        small = changed is not None and 0 < len(changed) <= min(8, nl)
-        idx_list = changed if small else range(nl)
-        sess = [local[i] for i in idx_list]
-        tally(lattice_rows_uploaded=len(sess), full_uploads=int(not small))
-        for s in sess:
-            s._lattice.ensure(cells)
-        lat = JitterLattice(*(np.stack(f) for f in zip(
-            *(s._lattice.rows(cells) for s in sess))))
-        rows = [_up(x, self.device) for x in kf.lattice_tables(lat)]
-        base = _up([s._lat_base for s in sess], self.device, torch.int32)
-        if small:
-            if self._serving:
-                self._lat_dev = tuple(t.clone() for t in self._lat_dev)
-                self._lat_base_dev = self._lat_base_dev.clone()
-            idx = _up(changed, self.device, torch.int64)
-            for dst, r in zip(self._lat_dev, rows):
-                dst.index_copy_(0, idx, r)
-            self._lat_base_dev.index_copy_(0, idx, base)
-        else:
-            self._lat_dev = tuple(rows)
-            self._lat_base_dev = base
+
+        def build(sess):
+            for s in sess:
+                s._lattice.ensure(cells)
+            lat = JitterLattice(*(np.stack(f) for f in zip(
+                *(s._lattice.rows(cells) for s in sess))))
+            rows = dict(zip(_LAT, (_up(x, self.device)
+                                   for x in kf.lattice_tables(lat))))
+            rows["lat_base"] = _up([s._lat_base for s in sess], self.device,
+                                   torch.int32)
+            return rows
+
+        group = (None if changed is None else
+                 dict(zip(_LAT, self._lat_dev), lat_base=self._lat_base_dev))
+        group = self._upload_rows(group, changed, build,
+                                  "lattice_rows_uploaded")
+        self._lat_dev = tuple(group[k] for k in _LAT)
+        self._lat_base_dev = group["lat_base"]
         # versions may have been bumped by ensure() just above
-        self._lat_key = (cells, tuple(s._lattice.version for s in local))
+        self._lat_key = (cells, tuple(s._lattice.version
+                                      for s in self._local))
 
     def _upload_scores(self, E: int, key, inc: float) -> None:
         """Publish the score tables, the per-session jitter deltas (par)
-        and the offsets. When only a few sessions' revisions moved (a feed,
-        a rebase, an idle-horizon append, a live [voice:]) and E is
-        unchanged, their rows are scattered in place; otherwise all
-        upload. A direct `session.voice` assignment (no revision bump)
-        changes key[2] with no changed revision and rebuilds all. While
-        serving, the scatter goes into a copy of the score tables, as in
-        _upload_lattices."""
+        and the offsets (_upload_rows). A session's rows move with its
+        revision (a feed, a rebase, an idle-horizon append, a live
+        [voice:]) or its voice (a direct `session.voice` assignment bumps
+        no revision); a new E moves the structure."""
         local, nl = self._local, len(self._local)
         for s in local:
             if abs(s.voice.jitter_frequency - inc) >= 1e-9:
                 raise ValueError("pooled sessions must share a jitter rate")
         prev = self._cache_key
-        same_struct = (self._dev is not None and prev is not None
-                       and prev[0] == key[0])
-        changed = ([i for i in range(nl) if prev[1][i] != key[1][i]]
-                   if same_struct else None)
-        small = changed is not None and 0 < len(changed) <= min(8, nl)
-        idx_list = changed if small else range(nl)
-        sess = [local[i] for i in idx_list]
-        tally(score_rows_uploaded=len(sess), full_uploads=int(not small))
-        tabs = kf.score_tables(
-            stack_scores([s._build_score(E) for s in sess]),
-            _jparams([s.voice for s in sess], inc), self.sample_rate)
-        offs = _up([s._consumed_samples for s in sess], self.device,
-                   torch.int32)
-        rows = dict(zip(("n", "scal", "vec", "par"),
-                        (_up(x, self.device) for x in tabs)), offsets=offs)
-        if small:
-            if self._serving:
-                self._dev = dict(self._dev, **{k: self._dev[k].clone()
-                                               for k in rows})
-            idx = _up(changed, self.device, torch.int64)
-            for k, r in rows.items():
-                self._dev[k].index_copy_(0, idx, r)
-        else:
-            self._dev = rows
+        changed = ([i for i in range(nl) if prev[1][i] != key[1][i]
+                    or prev[2][i] != key[2][i]]
+                   if (self._dev is not None and prev is not None
+                       and prev[0] == key[0]) else None)
+
+        def build(sess):
+            tabs = kf.score_tables(
+                stack_scores([s._build_score(E) for s in sess]),
+                _jparams([s.voice for s in sess], inc), self.sample_rate)
+            rows = dict(zip(("n", "scal", "vec", "par"),
+                            (_up(x, self.device) for x in tabs)))
+            rows["offsets"] = _up([s._consumed_samples for s in sess],
+                                  self.device, torch.int32)
+            return rows
+
+        self._dev = self._upload_rows(self._dev, changed, build,
+                                      "score_rows_uploaded")
         self._dev["inc"] = float(np.float32(inc))
         self._dev["sr"] = self.sample_rate
         self._cache_key = key
@@ -1612,7 +1629,7 @@ class StreamPool:
     # back, the offsets advanced, the output conversion) and one copy of
     # the audio out of the graph's buffer. A published set
     # is never written again (the frontend scatters into copies, see
-    # _upload_scores), so a queued replay cannot read a half-applied feed;
+    # _upload_rows), so a queued replay cannot read a half-applied feed;
     # a new set costs a device copy of the group that changed and one
     # capture. The other design, one graph over fixed tables with each
     # published set copied into them at adoption, would put a copy of the

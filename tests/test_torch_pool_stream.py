@@ -141,3 +141,90 @@ def test_pool_spans_cost_one_check_without_a_profiler():
     pool.tick_pipelined()
     pool.drain()
     assert trace.spans() == []
+
+
+# twelve sessions whose seeds share a lattice stagger (seed % 4 == 0 at a
+# 0.25 s window) and twelve spread over the other three, so that more than
+# eight slide on one pass and fewer than all
+SEEDS = [4 * k for k in range(12)] + [4 * k + 1 + k % 3 for k in range(12)]
+# tick -> (sessions, text) fed and flushed before it: more than eight
+# sessions' revisions move on tick 3 and all of them on tick 30, more than
+# eight lattices on tick 29; tick 31's long text grows E past the pin
+FEEDS = {0: (range(12), "hello there, how are you"),
+         3: (range(12, 24), "why not go on then"),
+         30: (range(24), "we go."),
+         31: ([5], "the quick brown fox jumps over the lazy dog. " * 2)}
+MANY_TICKS = 34
+
+
+def _moved(before, after) -> int:
+    """Sessions whose per-session key entries moved between two upload
+    keys (revisions and voices, or lattice versions)."""
+    if before is None or before is after:
+        return 0
+    return sum(any(b[i] != a[i] for b, a in zip(before[1:], after[1:]))
+               for i in range(len(after[1])))
+
+
+def test_many_changed_sessions_scatter_equal_to_whole_uploads(monkeypatch):
+    def mk():
+        return pstream.StreamPool(24, voice="plain", language="english",
+                                  block=1024, jitter_horizon_s=0.25,
+                                  pin_elems=64, seeds=SEEDS, device="cpu")
+
+    pool, twin = mk(), mk()
+    moved = []        # a tick's sessions whose scores, lattices moved
+    # the spans as a profiler records them, without the profiler's rows of
+    # every operation of the CPU ticks
+    monkeypatch.setattr(trace, "_recording", lambda: True)
+    trace.clear()
+    for k in range(MANY_TICKS):
+        ids, text = FEEDS.get(k, ((), ""))
+        for p in (pool, twin):
+            for i in ids:
+                p.feed(i, text)
+                p.flush(i)
+        keys = pool._cache_key, pool._lat_key
+        twin._cache_key = twin._lat_key = None     # the whole path
+        np.testing.assert_array_equal(pool.read_block(),
+                                      twin.read_block())
+        moved.append((_moved(keys[0], pool._cache_key),
+                      _moved(keys[1], pool._lat_key)))
+        for name in ("n", "scal", "vec", "par", "offsets", "lat_base"):
+            assert torch.equal(pool._dev[name], twin._dev[name]), name
+        assert all(torch.equal(a, b) for a, b in
+                   zip(pool._dev["lat"], twin._dev["lat"]))
+    hosts = [s.attrs for s in trace.spans() if s.name == "host"][::2]
+    assert len(hosts) == MANY_TICKS
+    first, grown = hosts[0], hosts[31]
+    assert (first["full_uploads"], first["score_rows_uploaded"],
+            first["lattice_rows_uploaded"]) == (2, 24, 24)
+    # a new E rebuilds every session's scores, the lattices stay scattered
+    assert pool._cache_key[0] > 64
+    assert (grown["full_uploads"], grown["score_rows_uploaded"]) == (1, 24)
+    for k, h in enumerate(hosts[1:31], 1):
+        assert h.get("full_uploads", 0) == 0, (k, h)
+        assert (h.get("score_rows_uploaded", 0),
+                h.get("lattice_rows_uploaded", 0)) == moved[k], (k, h)
+    assert (moved[3][0], moved[30][0]) == (12, 24)      # all: scattered
+    assert max(m[1] for m in moved[1:31]) > 8
+    np.testing.assert_array_equal(pool.read_block(), twin.read_block())
+
+
+def test_pool_passes_sorts_every_host_pass():
+    # benchmarks/pool_passes' span window on the CPU pool: every tick's host
+    # pass in one kind, the tallies summed, the wrapped names restored (its
+    # times say nothing here)
+    from grail_tpu_torch.benchmarks import pool_passes
+
+    cell = harness.load_cell(CELL, TINY)
+    entry = harness.entry_class(cell.entry)(cell, 2 ** 33 + 19, "cpu")
+    entry.setup()
+    full_pass = pstream.StreamPool._prepare_tick_full
+    r = pool_passes.spans_window(entry, 2.0)
+    assert pstream.StreamPool._prepare_tick_full is full_pass
+    assert trace.span("tick") is trace._OFF
+    kinds = r["kinds"]
+    assert sum(k["n"] for k in kinds.values()) == r["ticks"] > 0
+    assert "whole" not in kinds and not r["tallies"].get("full_uploads")
+    assert kinds["fast"]["n"] > 0 and r["parts_s"] == {}

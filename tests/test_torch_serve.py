@@ -191,6 +191,86 @@ def test_serve_crosses_slides_and_rebases_bit_equal():
     np.testing.assert_array_equal(pool.read_block(), ref_pool.read_block())
 
 
+def _published(dev: dict) -> dict:
+    """A published set's device tables by name (the lattices apart)."""
+    out = {}
+    for name, v in dev.items():
+        if isinstance(v, tuple):
+            out.update((f"{name}{j}", t) for j, t in enumerate(v))
+        elif isinstance(v, torch.Tensor):
+            out[name] = v
+    return out
+
+
+def test_serve_scatters_many_changed_sessions_into_a_copy(monkeypatch):
+    # ten of twelve sessions fed between two builds, and ten lattice windows
+    # sliding on one build (their seeds share a stagger at a 0.25 s window):
+    # only their rows are rebuilt, scattered into a copy of the set that
+    # the ticks read, which stays as it was published
+    seeds = [4 * k for k in range(10)] + [5, 10]
+
+    def mk():
+        pool = pstream.StreamPool(12, voice="plain", language="english",
+                                  block=BLOCK, jitter_horizon_s=0.25,
+                                  pin_elems=64, seeds=seeds, device="cpu")
+        for i in range(12):
+            pool.feed(i, TEXTS[i % N])
+            pool.flush(i)
+        return pool
+
+    pool, twin = mk(), mk()
+    lattices = {id(s._lattice): i for i, s in enumerate(pool.sessions)}
+    built = {"scores": [], "lattices": []}
+    build_score = pstream.StreamSession._build_score
+    rows = pstream._IncrementalLattice.rows
+
+    def count_scores(s, pad_to):
+        if s._pool_ref[0] is pool:
+            built["scores"].append(s._pool_ref[1])
+        return build_score(s, pad_to)
+
+    def count_lattices(lat, cells):
+        if id(lat) in lattices:
+            built["lattices"].append(lattices[id(lat)])
+        return rows(lat, cells)
+
+    monkeypatch.setattr(pstream.StreamSession, "_build_score", count_scores)
+    monkeypatch.setattr(pstream._IncrementalLattice, "rows", count_lattices)
+    pool.serve_start(period=9999)
+    twin._prepare_tick()                # serve_start's first build
+    many = {"scores": 0, "lattices": 0}
+    for k in range(32):
+        if k == 3:
+            for p in (pool, twin):
+                for i in range(1, 11):
+                    p.feed(i, " more")
+                    p.flush(i)
+        pub = _published((pool._swap_pending or pool._serve_cur)["dev"])
+        held = {name: t.clone() for name, t in pub.items()}
+        for v in built.values():
+            v.clear()
+        if pool._serve_build():
+            new = _published(pool._swap_pending["dev"])
+            for name, t in pub.items():
+                assert torch.equal(t, held[name]), (k, name)
+            for what, names in (("scores", ("n", "scal", "vec", "par")),
+                                ("lattices", ("lat0", "lat1", "lat2",
+                                              "lat_base"))):
+                if built[what]:
+                    assert all(new[x] is not pub[x] for x in names), k
+        for what, ids in built.items():
+            assert len(ids) < 12, (k, what)
+            if len(ids) > 8:
+                many[what] += 1
+        if k == 3:
+            assert sorted(built["scores"]) == list(range(1, 11))
+        np.testing.assert_array_equal(pool.serve_tick().numpy(),
+                                      twin.read_block())
+    pool.serve_stop()
+    assert many == {"scores": 1, "lattices": 1}
+    np.testing.assert_array_equal(pool.read_block(), twin.read_block())
+
+
 def test_pin_elems_fixes_the_bucket_as_jax_does():
     Es = []
     for mod, kw in ((jstream, dict(backend="fused_interpret")),
