@@ -74,7 +74,7 @@ from ..text.intonate import PhonemeElem, intonate
 from ..text.phonemes import Phoneme
 from ..text.transcribe import transcribe_chars, transcribe_partial
 from ..voices import Voice, get_voice
-from .trace import annotate, span, tally
+from .trace import annotate, span, stage, tally
 
 class _IncrementalLattice:
     """Value-noise lattices grown on demand (unbounded sessions), with a
@@ -356,30 +356,39 @@ def _xla_tick(impl: str, dev: dict, sf: torch.Tensor, si: torch.Tensor,
     rows of the carry mode's layout, so checkpoints read one layout
     whichever tick ran. `impl` is 'kernel' (seq_scan.cu) or 'plain' for the
     two recurrences; the rest is plain PyTorch on the inputs' device. No
-    host synchronisation: a CUDA graph can capture it."""
+    host synchronisation: a CUDA graph can capture it.
+
+    Its stages are spans (runtime/trace.py's `stage`: `jsched`, `frames`,
+    `carrier`, `core`, `pack`), recorded only inside an open span, the
+    pool's `launch`: a solo session's read and a served tick record none."""
     F = NUM_FORMANTS
-    phi, cell, jphi, jcell = jsched_scan(si[:, 3].view(torch.float32),
-                                         si[:, 4], dev["inc"], blk, impl)
-    elems, valid = expand_score(_score_view(dev), dev["sr"], blk,
-                                offset=dev["offsets"])
-    par = dev["par"]
-    elems = apply_jitter(elems, JitterLattice(*dev["lat"]), par[:, 0],
-                         par[:, 1], par[:, 2],
-                         (phi, cell - dev["lat_base"][:, None]),
-                         mask=valid if masked else None)
-    elems = SynthesisElem(*(f.transpose(0, 1) for f in elems))
-    state = SynthState(phase=si[:, 2].view(torch.float32),
-                       filter_state_a=sf[:, :F],
-                       filter_state_b=sf[:, F:2 * F],
-                       filter_state_c=sf[:, 2 * F:],
-                       seed=kf._i32_to_u32(si[:, 1]))
-    car, phase = carrier_scan(state.phase, elems.frequency, impl)
-    out, st = _block_core(elems, state, carrier=car)
-    sf2 = torch.cat([st.filter_state_a, st.filter_state_b,
-                     st.filter_state_c], dim=1)
-    si2 = torch.stack([si[:, 0], kf._u32_to_i32(st.seed),
-                       phase.view(torch.int32), jphi.view(torch.int32),
-                       jcell], dim=1)
+    with stage("jsched"):
+        phi, cell, jphi, jcell = jsched_scan(si[:, 3].view(torch.float32),
+                                             si[:, 4], dev["inc"], blk, impl)
+    with stage("frames"):
+        elems, valid = expand_score(_score_view(dev), dev["sr"], blk,
+                                    offset=dev["offsets"])
+        par = dev["par"]
+        elems = apply_jitter(elems, JitterLattice(*dev["lat"]), par[:, 0],
+                             par[:, 1], par[:, 2],
+                             (phi, cell - dev["lat_base"][:, None]),
+                             mask=valid if masked else None)
+        elems = SynthesisElem(*(f.transpose(0, 1) for f in elems))
+    with stage("carrier"):
+        state = SynthState(phase=si[:, 2].view(torch.float32),
+                           filter_state_a=sf[:, :F],
+                           filter_state_b=sf[:, F:2 * F],
+                           filter_state_c=sf[:, 2 * F:],
+                           seed=kf._i32_to_u32(si[:, 1]))
+        car, phase = carrier_scan(state.phase, elems.frequency, impl)
+    with stage("core"):
+        out, st = _block_core(elems, state, carrier=car)
+    with stage("pack"):
+        sf2 = torch.cat([st.filter_state_a, st.filter_state_b,
+                         st.filter_state_c], dim=1)
+        si2 = torch.stack([si[:, 0], kf._u32_to_i32(st.seed),
+                           phase.view(torch.int32), jphi.view(torch.int32),
+                           jcell], dim=1)
     return out.T, sf2, si2
 
 
@@ -1558,7 +1567,7 @@ class StreamPool:
         blk = self.block * k
         with span("host"):
             dev = self._prepare_tick(blk)
-        with span("launch"):
+        with span("launch", program=self._program):
             out, self._sf, self._si = self._tick_program(blk)(dev, self._sf,
                                                               self._si)
             dev["offsets"].add_(blk)       # advanced on the device

@@ -45,7 +45,7 @@ The fused backend opens all four of `prep`'s spans; the core, xla and scan
 backends only `lattices`.
 
 The spans of the pool (`runtime/stream.py`'s StreamPool), four a pipelined
-tick and two a fed text:
+tick (nine on the xla tick) and two a fed text:
 
   * `tick`      a root: `read_blocks` (attribute `blocks`), or
                 `dispatch_tick` (its block, the pinned host buffer and the
@@ -60,7 +60,8 @@ tick and two a fed text:
                 elements);
   * `launch`    in `tick`: the tick program's enqueue (the carry launch, or
                 the xla tick, and the output conversion) and the offsets'
-                advance;
+                advance, with the tick's `program` ('fused', the carry
+                tick, or 'xla');
   * `collect`   a root: the wait on the previous tick's copy event and the
                 audio handed out;
   * `feed`      a root: `StreamPool.feed` (`what` 'feed') or `flush`
@@ -68,7 +69,22 @@ tick and two a fed text:
                 `elems`, the elements the frontend appended (after the
                 glide merge; `StreamSession._append_phonemes` tallies them).
 
-Serve mode's frontend cycles and replays record no span (its feeds do).
+On the xla tick (`stream._xla_tick`) `launch` holds five stages, once a
+tick each, in this order (the carry tick records none):
+
+  * `jsched`    the jitter recurrence, `seq_scan.jsched_scan`;
+  * `frames`    the sequencer (`expand_score` at the sessions' offsets) and
+                the jitter (`apply_jitter` at the lattice windows' rows);
+  * `carrier`   the carried state unpacked and the f32 carrier,
+                `seq_scan.carrier_scan`;
+  * `core`      the associative-scan core, `synthesize._block_core`;
+  * `pack`      the new state packed back into the carry mode's rows.
+
+They are `stage`s: recorded only inside a span open on the same thread,
+so a solo session's read, which opens none, records no stage.
+
+Serve mode's frontend cycles and replays record no span (its feeds do),
+and its captures of the xla tick no stage.
 
 Besides the profiler's rows, each span is kept in a bounded buffer as a
 `Span`: the call it belongs to (every span under one root shares the root's
@@ -89,7 +105,8 @@ from typing import NamedTuple, Optional
 import torch
 
 MAXLEN = 1 << 16      # spans kept (a 51-s window: ~2k of 64-text calls,
-#                       15-17k of pool ticks and feeds at N = 768)
+#                       15-17k of pool ticks and feeds at N = 768 on the
+#                       carry tick; on the xla tick nine spans a tick)
 PREFIX = "grail."
 
 _recording = torch.autograd._profiler_enabled
@@ -152,6 +169,15 @@ def span(name: str, **attrs):
     return _Open(name, attrs)
 
 
+def stage(name: str, **attrs):
+    """As `span`, but recorded only inside a span open on this thread: a
+    stage of a larger step, which records nothing where that step is run
+    without its enclosing span."""
+    if not _recording() or not getattr(_local, "stack", None):
+        return _OFF
+    return _Open(name, attrs)
+
+
 def annotate(**attrs):
     """Add attributes to the innermost span open on this thread, if any."""
     stack = getattr(_local, "stack", None)
@@ -178,4 +204,5 @@ def clear():
     _buffer.clear()
 
 
-__all__ = ["MAXLEN", "Span", "annotate", "clear", "span", "spans", "tally"]
+__all__ = ["MAXLEN", "Span", "annotate", "clear", "span", "spans", "stage",
+           "tally"]

@@ -1559,3 +1559,60 @@ def test_served_xla_graph_equals_eager_ticks(cuda, N):
     assert any(s._lat_base > 0 for s in pool.sessions)
     assert torch.equal(pool.read_block(sync=False),
                        twin.read_block(sync=False))
+
+
+def test_xla_tick_stages_under_a_profiler_on_the_card(cuda):
+    # the xla tick's five stage spans (runtime/trace.py) on the card, under
+    # a profiler: eager ticks record them in `launch` once a tick, with
+    # audio and rows bit-equal to a twin's unprofiled ticks; serve mode
+    # captures the tick under the profiler, once also inside an open span,
+    # so that the stages' profiler ranges run inside the capture, and every
+    # replay equals the twin's eager tick and counts one launch of each
+    # kernel
+    from grail_tpu_torch.runtime import trace
+
+    stages = ("jsched", "frames", "carrier", "core", "pack")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    pool, twin = _serve_pools(3, pin_elems=64, block=441)
+    assert pool.backend == "xla"
+    trace.clear()
+    with torch.profiler.profile(activities=acts):
+        got = [pool.read_block(sync=False) for _ in range(6)]
+        torch.cuda.synchronize()
+    for t, a in enumerate(got):
+        assert torch.equal(a, twin.read_block(sync=False)), t
+    assert torch.equal(pool._sf, twin._sf) and torch.equal(pool._si,
+                                                           twin._si)
+    spans = trace.spans()
+    assert [s.attrs["program"] for s in spans if s.name == "launch"] == \
+        ["xla"] * 6
+    assert [(s.name, s.parent) for s in spans if s.name in stages] == \
+        [(n, "launch") for n in stages] * 6
+
+    trace.clear()
+    with torch.profiler.profile(activities=acts):
+        pool.serve_start(period=9999)
+        n0, c0 = dict(kf.LAUNCHES), pool._serve_captures
+        for t in range(24):
+            _late_feeds(t, 3, (pool, twin))
+            if t == 8:
+                with trace.span("launch"):
+                    assert pool._serve_build()
+            else:
+                pool._serve_build()
+            a = pool.serve_tick()
+            assert torch.equal(a, twin.read_block(sync=False)), t
+        torch.cuda.synchronize()
+    spans = trace.spans()
+    root, = [s for s in spans if s.name == "launch" and s.parent is None]
+    assert [s.name for s in spans if s.call == root.call
+            and s.name in stages] == list(stages)
+    # the twin's eager ticks record theirs in the pool's `launch`
+    assert sum(s.name in stages for s in spans) == 5 * 25
+    assert pool._serve_captures > c0
+    for k in ("carrier_scan", "jsched_scan"):
+        assert kf.LAUNCHES[k] == n0[k] + 2 * 24
+    assert torch.equal(pool._sf, twin._sf) and torch.equal(pool._si,
+                                                           twin._si)
+    pool.serve_stop()
